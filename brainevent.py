@@ -4,8 +4,7 @@
 """Drop-in module alias: ``import brainevent`` -> :mod:`brainevent_tpu`.
 
 Code written against the reference package imports ``brainevent``; this shim
-makes that import work unchanged on the TPU-native stack (including the
-PEP 562 deprecation hooks).
+makes that import work unchanged (including the PEP 562 deprecation hooks).
 """
 
 import sys as _sys

@@ -13,16 +13,15 @@
 # limitations under the License.
 # ==============================================================================
 
-"""brainevent-tpu: a TPU-native event-driven sparse operator framework for
-spiking neural networks.
+"""brainevent-tpu: an event-driven sparse operator framework for spiking
+neural networks, in JAX.
 
-A ground-up JAX/Pallas/XLA re-design with the full capability surface of
+A ground-up JAX/XLA re-design with the capability surface of
 chaobrain/brainevent v0.2.0: event representations, sparse data structures
-(CSR/CSC/Dense/ELL/implicit-JIT connectivity), ~45 multi-backend custom
-primitives with autodiff/vmap support, an LFSR RNG subsystem usable inside
-Pallas kernels, a native C++ XLA-FFI pipeline for CPU custom kernels, a
-benchmark harness, and a CLI — plus TPU-only extensions (multi-chip sharding
-over ICI meshes).
+(CSR/CSC/Dense/ELL/implicit-JIT connectivity), multi-backend custom
+primitives with autodiff/vmap support, an LFSR RNG subsystem, a native C++
+XLA-FFI pipeline for CPU custom kernels, a benchmark harness, and a CLI —
+plus multi-device sharding of the EI network and the sparse products.
 """
 
 from ._version import __version__, __version_info__
@@ -30,10 +29,6 @@ from ._version import __version__, __version_info__
 from . import _deprecation
 from . import config
 
-# Persistent XLA compilation cache — the TPU analog of the reference's
-# kernix artifact cache (brainevent/_op/kernix_cache.py:41). On by
-# default; BRAINEVENT_COMPILATION_CACHE=0 disables, a path overrides.
-config._init_compilation_cache_from_env()
 from ._error import (
     BrainEventError,
     MathError,
@@ -45,7 +40,6 @@ from ._error import (
     KernelExecutionError,
     KernelToolchainError,
     CompilationError,
-    MosaicCompilationError,
     KernelRegistrationError,
     BenchmarkDataFnNotProvidedError,
     CUDANotInstalledError,
@@ -75,7 +69,6 @@ from .csr import (
     update_csr_on_binary_post, update_csr_on_binary_post_p,
     update_csc_on_binary_pre, update_csc_on_binary_post,
     csr_slice_rows, csr_slice_rows_p,
-    HybridConfig, get_hybrid_config, init_csr_config,
 )
 from ._misc import (
     csr_to_coo_index, coo_to_csc_index, csr_to_csc_index, csc_to_csr_index,
@@ -184,7 +177,6 @@ __all__ = [
     'update_csr_on_binary_post', 'update_csr_on_binary_post_p',
     'update_csc_on_binary_pre', 'update_csc_on_binary_post',
     'csr_slice_rows', 'csr_slice_rows_p',
-    'HybridConfig', 'get_hybrid_config', 'init_csr_config',
     # dense
     'Dense',
     'binary_densemv', 'binary_densemv_p',
@@ -226,7 +218,7 @@ __all__ = [
     'BrainEventError', 'MathError', 'UnsupportedOperationError',
     'KernelError', 'KernelNotAvailableError', 'KernelCompilationError',
     'KernelFallbackExhaustedError', 'KernelExecutionError',
-    'KernelToolchainError', 'CompilationError', 'MosaicCompilationError',
+    'KernelToolchainError', 'CompilationError',
     'KernelRegistrationError', 'BenchmarkDataFnNotProvidedError',
     'CUDANotInstalledError', 'NvccNotFoundError', 'HostCompilerNotFoundError',
     'HeaderNotFoundError', 'GpuArchDetectionError',

@@ -17,7 +17,7 @@
 
 Mirrors the reference error hierarchy (``brainevent/_error.py:43-405``,
 20 classes) so downstream code that catches specific failure categories keeps
-working, while extending it with TPU-specific compilation failures (Mosaic).
+working.
 
 Hierarchy::
 
@@ -29,8 +29,7 @@ Hierarchy::
         ├── KernelNotAvailableError
         ├── KernelCompilationError
         │   └── CompilationError
-        │       ├── HostCompilerIncompatibleError
-        │       └── MosaicCompilationError        (TPU addition)
+        │       └── HostCompilerIncompatibleError
         ├── KernelFallbackExhaustedError
         ├── KernelExecutionError
         ├── CUDANotInstalledError
@@ -52,7 +51,6 @@ __all__ = [
     'KernelNotAvailableError',
     'KernelCompilationError',
     'CompilationError',
-    'MosaicCompilationError',
     'HostCompilerIncompatibleError',
     'KernelFallbackExhaustedError',
     'KernelExecutionError',
@@ -100,20 +98,11 @@ class KernelNotAvailableError(KernelError):
 
 
 class KernelCompilationError(KernelError):
-    """A kernel failed to compile (native toolchain or Mosaic)."""
+    """A kernel failed to compile."""
 
 
 class CompilationError(KernelCompilationError):
     """Native source compilation (g++/nvcc) returned a non-zero status."""
-
-
-class MosaicCompilationError(CompilationError):
-    """A Pallas kernel failed to lower/compile through Mosaic-TPU.
-
-    TPU-specific addition: raised with the offending kernel name, grid/block
-    shapes, and a hint about common Mosaic constraints (static shapes, last
-    dim 128, minimum sublane tiling per dtype).
-    """
 
 
 class HostCompilerIncompatibleError(CompilationError):
@@ -133,8 +122,8 @@ class CUDANotInstalledError(KernelError):
 
     brainevent-tpu keeps the reference's CUDA entry points
     (``load_cuda_inline`` etc., reference ``brainevent/_op/kernix_pipeline.py``)
-    for API parity; on TPU/CPU-only hosts they raise this error with a pointer
-    at the Pallas/C++-FFI equivalents.
+    for API parity; they raise this error until the CUDA pipeline is built,
+    with a pointer at the C++-FFI equivalents.
     """
 
 

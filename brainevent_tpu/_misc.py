@@ -179,10 +179,10 @@ def csr_to_csc_index(
 
     ``data[perm]`` reorders CSR data into CSC order. The reference offers a
     CUDA column-block method (``brainevent/_misc.py:1516``,
-    ``csr_to_csc.cu``); on TPU the conversion is a trace-time structural
+    ``csr_to_csc.cu``); here the conversion is a trace-time structural
     transform, so every method maps to the COO route.
     """
-    del method, column_block_size  # single TPU-appropriate algorithm
+    del method, column_block_size  # one algorithm serves every method
     rows, cols = csr_to_coo_index(csr_indptr, csr_indices)
     indptr, csc_rows, perm = coo_to_csc_index(rows, cols, shape=shape)
     return indptr, csc_rows, (perm if include_perm else None)

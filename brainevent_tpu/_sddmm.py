@@ -17,8 +17,8 @@
 
 ``S[i, j] = (A @ B)[i, j]`` evaluated only at the given sparsity pattern —
 used by the CSR transpose rules to form per-synapse weight gradients without
-materializing the dense product. On TPU the per-sample row/column gathers
-feed one fused VPU multiply-reduce."""
+materializing the dense product: the per-sample row/column gathers feed
+one fused multiply-reduce."""
 
 import jax
 import jax.numpy as jnp

@@ -16,7 +16,7 @@
 """Shared type aliases for the brainevent-tpu public API.
 
 Capability parity with the reference type module
-(``brainevent/_typing.py:16-82``), re-expressed for a JAX/TPU-first stack.
+(``brainevent/_typing.py:16-82``), re-expressed for a JAX stack.
 """
 
 from typing import Callable, Literal, Sequence, Tuple, Union

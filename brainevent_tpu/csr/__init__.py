@@ -29,10 +29,6 @@ from .slice import (
 )
 from .diag_add import csr_diag_position, csr_diag_add
 from .spsolve import csr_solve
-from .block_config import (
-    HybridConfig, get_hybrid_config, save_hybrid_config, current_device_kind,
-)
-from .initialize import init_csr_config
 
 __all__ = [
     'CompressedSparseData', 'CSR', 'CSC',
@@ -49,6 +45,4 @@ __all__ = [
     'csr_slice_rows', 'csr_slice_rows_p',
     'csr_slice_rows_grad', 'csr_slice_rows_grad_p',
     'csr_diag_position', 'csr_diag_add', 'csr_solve',
-    'HybridConfig', 'get_hybrid_config', 'save_hybrid_config',
-    'current_device_kind', 'init_csr_config',
 ]

@@ -14,11 +14,8 @@ def row_ids_from_indptr(indptr, nse: int):
     """Expand CSR ``indptr`` into the per-nse row-id array (COO rows).
 
     Formulated as a cumsum over scattered row-start markers instead of
-    ``jnp.repeat``: on TPU the repeat lowers to an nse-length serialized
-    gather (~7 ns/element — it alone cost 0.5 ms at nse=100k and
-    dominated every row-side plasticity/dt2t kernel, BENCH_NOTES r4b);
-    the marker scatter touches only ``m`` elements and the cumsum is a
-    logarithmic pass. Empty rows stack markers at one position (the
+    ``jnp.repeat``: the marker scatter touches only ``m`` elements and
+    the cumsum is one pass over ``nse``. Empty rows stack markers at one position (the
     ``.add``), trailing empty rows drop at position nse — both give the
     same ids as the repeat formulation.
     """
@@ -38,7 +35,9 @@ def event_gate(v, out_dtype):
 
 
 def is_homo(weights) -> bool:
-    """Homogeneous (single shared) weight?"""
+    """Homogeneous (single shared) weight? Transpose rules see the weights
+    as an ``UndefinedPrimal``, whose shape lives on its ``aval``."""
+    weights = getattr(weights, 'aval', weights)
     return weights.size == 1 if hasattr(weights, 'size') else False
 
 

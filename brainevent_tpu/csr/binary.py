@@ -23,8 +23,8 @@ reference AD rules (``brainevent/_csr/binary.py:656-754``).
 
 API note: the reference threads a CUDA task-queue ``workspace`` through this
 function (``brainevent/_csr/binary.py:128``); brainevent-tpu accepts the
-keyword for drop-in compatibility but ignores it — the TPU design needs no
-atomics or persistent task queues (see ``ops/scatter.py``).
+keyword for drop-in compatibility but ignores it — the scatter direction is
+XLA's scatter-add (see ``ops/scatter.py``), which needs no task queues.
 """
 
 from typing import Optional
@@ -37,7 +37,7 @@ from .._misc import namescope, csr_to_coo_index
 from ..ops.core import XLACustomKernel
 from ..ops.util import general_batching_rule
 from ..ops.benchmark import BenchmarkConfig
-from ..ops.scatter import event_scatter_add, segment_sum_sorted
+from ..ops.scatter import event_scatter_add
 from ..units import maybe_unit, split_mantissa_unit
 from ._common import csr_checks, event_gate, is_homo, row_ids_from_indptr
 from .float import csrmv_p_call, csrmm_p_call
@@ -73,9 +73,6 @@ def _binary_csrmv_jax_kernel(*, shape, transpose, indexed=False, **params):
             events = event_gate(vector, out_dtype)[rows]
             return (event_scatter_add(indices, w * events, k, dtype=out_dtype),)
         events = event_gate(vector, out_dtype)[indices]
-        # measured (BENCH_PRIMS_r02.json): jax.ops.segment_sum with
-        # indices_are_sorted lowers ~1.5x SLOWER than the scatter-add
-        # engine on TPU — keep event_scatter_add
         return (event_scatter_add(rows, w * events, m, dtype=out_dtype),)
 
     return kernel
@@ -86,7 +83,7 @@ def _grad_backend(params):
     primitive; fall back to auto-select for gradient calls
     (reference ``brainevent/_csr/binary.py:624-653``)."""
     backend = params.get('backend')
-    return backend if backend in (None, 'jax_raw', 'pallas') else None
+    return backend if backend in (None, 'jax_raw') else None
 
 
 def _binary_csrmv_jvp_weights(w_dot, weights, indices, indptr, vector, **params):
@@ -140,33 +137,11 @@ def _binary_csrmv_batching(args, axes, **params):
     return general_batching_rule(binary_csrmv_p, args, axes, **params)
 
 
-def _binary_csrmv_pallas_kernel(**params):
-    """Measured alias of the XLA kernel (both directions).
-
-    A real Mosaic event-gather kernel exists (``csr/pallas_kernels.py``:
-    compaction + flat-nnz membership compares + one-hot segment
-    reduction) but LOSES to the XLA formulation on the reference
-    microbenchmark grid (BENCH_PRIMS_r02.json: NT n=1000 conn=1% 338 vs
-    79 us/call; conn=10% 4948 vs 1018) — the ragged flat-nnz axis forces
-    per-active-id whole-array compares plus a 128-lane serial reduction,
-    while the rectangular FCN variant of the same design WINS >5-100x
-    (``fcn/pallas_kernels.py``). The scatter direction's chunked-MXU
-    one-hot engine (``ops/scatter.py``) is shared with jax_raw by
-    construction. The Mosaic kernel remains importable for future shapes
-    where compares could win."""
-    return _binary_csrmv_jax_kernel(**params)
-
-
 binary_csrmv_p = XLACustomKernel(
     'binary_csrmv',
     doc='Event-driven CSR SpMV (reference brainevent/_csr/binary.py:128).',
 )
 binary_csrmv_p.def_jax_kernel(_binary_csrmv_jax_kernel, asdefault=True)
-binary_csrmv_p.def_pallas_kernel(
-    _binary_csrmv_pallas_kernel, alias_of='jax_raw',
-    note='measured: the Mosaic flat-nnz event-gather loses to XLA on the '
-         'reference grid (BENCH_PRIMS_r02.json, NT n=1000: 338 vs 79 us); '
-         'scatter direction shares the chunked-MXU one-hot engine')
 binary_csrmv_p.def_jvp_rule2(
     _binary_csrmv_jvp_weights, None, None, _binary_csrmv_jvp_vector)
 binary_csrmv_p.def_transpose_rule(_binary_csrmv_transpose_rule)
@@ -213,8 +188,8 @@ def binary_csrmv(data, indices, indptr, v, *, shape, workspace=None,
     """Event-driven CSR SpMV ``y = A @ v`` / ``A.T @ v`` (unit-aware).
 
     ``workspace`` is accepted for reference API compatibility
-    (``brainevent/_csr/binary.py:128``) and ignored — the TPU design needs
-    no CUDA task-queue workspaces.
+    (``brainevent/_csr/binary.py:128``) and ignored — no CUDA task-queue
+    workspaces are needed.
     """
     del workspace
     return _binary_csrmv_core(data, indices, indptr, v, shape=shape,
@@ -319,9 +294,6 @@ binary_csrmm_p = XLACustomKernel(
     doc='Event-driven CSR SpMM (reference brainevent/_csr/binary.py:264).',
 )
 binary_csrmm_p.def_jax_kernel(_binary_csrmm_jax_kernel, asdefault=True)
-binary_csrmm_p.def_pallas_kernel(
-    lambda **params: _binary_csrmm_jax_kernel(**params),
-    alias_of='jax_raw', note='mm/batch route: chunked one-hot MXU engine + segment-sum; measured at reference scale (BENCH_PRIMS_r04.json, v5e): binary_csrmm 2,922/2,243 us NT/T at (5k,5k,1%,B=128), 16,474 at (10k,10k,1%,B=256) — the 10k row is ~13x off roofline; the plan-based batched gather is ROADMAP item 2')
 binary_csrmm_p.def_jvp_rule2(
     _binary_csrmm_jvp_weights, None, None, _binary_csrmm_jvp_B)
 binary_csrmm_p.def_transpose_rule(_binary_csrmm_transpose_rule)
@@ -365,7 +337,7 @@ def _binary_csrmm_core(data, indices, indptr, B, *, shape,
 
 def binary_csrmm(data, indices, indptr, B, *, shape, workspace=None,
                  transpose: bool = False, backend: Optional[str] = None):
-    """Event-driven CSR SpMM (unit-aware); ``workspace`` ignored (TPU)."""
+    """Event-driven CSR SpMM (unit-aware); ``workspace`` is ignored."""
     del workspace
     return _binary_csrmm_core(data, indices, indptr, B, shape=shape,
                               transpose=transpose, backend=backend)
@@ -385,9 +357,6 @@ binary_csrmv_indexed_p = XLACustomKernel(
 binary_csrmv_indexed_p.def_jax_kernel(
     lambda **params: _binary_csrmv_jax_kernel(indexed=True, **params),
     asdefault=True)
-binary_csrmv_indexed_p.def_pallas_kernel(
-    lambda **params: _binary_csrmv_jax_kernel(indexed=True, **params),
-    alias_of='jax_raw', note='mm/batch route: chunked one-hot MXU engine + segment-sum; measured at reference scale (BENCH_PRIMS_r04.json, v5e): binary_csrmm 2,922/2,243 us NT/T at (5k,5k,1%,B=128), 16,474 at (10k,10k,1%,B=256) — the 10k row is ~13x off roofline; the plan-based batched gather is ROADMAP item 2')
 binary_csrmv_indexed_p.def_general_batching()
 binary_csrmv_indexed_p.def_tags('csr', 'binary', 'mv', 'indexed')
 
@@ -446,9 +415,6 @@ binary_csrmm_indexed_p = XLACustomKernel(
 binary_csrmm_indexed_p.def_jax_kernel(
     lambda **params: _binary_csrmm_jax_kernel(indexed=True, **params),
     asdefault=True)
-binary_csrmm_indexed_p.def_pallas_kernel(
-    lambda **params: _binary_csrmm_jax_kernel(indexed=True, **params),
-    alias_of='jax_raw', note='mm/batch route: chunked one-hot MXU engine + segment-sum; measured at reference scale (BENCH_PRIMS_r04.json, v5e): binary_csrmm 2,922/2,243 us NT/T at (5k,5k,1%,B=128), 16,474 at (10k,10k,1%,B=256) — the 10k row is ~13x off roofline; the plan-based batched gather is ROADMAP item 2')
 binary_csrmm_indexed_p.def_general_batching()
 binary_csrmm_indexed_p.def_tags('csr', 'binary', 'mm', 'indexed')
 

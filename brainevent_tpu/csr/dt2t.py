@@ -18,8 +18,8 @@
 
 For each structural non-zero ``j`` at ``(row, col)``:
 ``out[j] = w[j] * y[row]`` (non-transposed) or ``w[j] * y[col]``
-(transposed). Used for per-synapse traces in plasticity models. On TPU this
-is a pure gather + multiply over the nse axis — one fused VPU pass.
+(transposed). Used for per-synapse traces in plasticity models: a pure
+gather + multiply over the nse axis, one fused pass.
 """
 
 from typing import Optional
@@ -94,41 +94,7 @@ csrmv_dt2t_p = XLACustomKernel(
     doc='Per-nse broadcast out[j] = w[j] * y[row(j)] '
         '(reference brainevent/_csr/dt2t.py:42).',
 )
-def _dt2t_mv_pallas_kernel(*, shape, transpose, platform=None, **params):
-    """Real Mosaic route: the structure gather ``y[row(j)]``/``y[col(j)]``
-    runs as a whole-operand one-hot MXU contraction in nnz order
-    (``ops/pair_gather.py`` single-side mode) instead of XLA's serialized
-    take; the per-nse weight multiply stays a fused XLA pass. Falls back
-    to the XLA form outside the envelope (x64, > _MAX_BLOCKS operand)."""
-    nse = params['indices_info'].shape[0]
-    jax_k = _dt2t_mv_jax_kernel(shape=shape, transpose=transpose, **params)
-
-    def kernel(y, w, indices, indptr):
-        from ..ops.pair_gather import pair_gather_product
-        out_dtype = params['outs'][0].dtype
-        if jnp.dtype(out_dtype) == jnp.float64:
-            return jax_k(y, w, indices, indptr)
-        if transpose:
-            src = pair_gather_product(None, indices, None, y,
-                                      x_passes=3, platform=platform)
-        else:
-            rows = row_ids_from_indptr(indptr, nse)
-            src = pair_gather_product(rows, None, y, None,
-                                      s_passes=3, platform=platform)
-        if src is None:
-            return jax_k(y, w, indices, indptr)
-        w_full = w[0] if w.shape[0] == 1 else w
-        return ((w_full * src).astype(out_dtype),)
-
-    return kernel
-
-
 csrmv_dt2t_p.def_jax_kernel(_dt2t_mv_jax_kernel, asdefault=True)
-csrmv_dt2t_p.def_pallas_kernel(_dt2t_mv_pallas_kernel)
-# measured on a v5e (BENCH_PRIMS_r04.json / BENCH_NOTES r4b): 76.7/46.4
-# vs 485.1/452.6 us/call (NT/T) at n=1k/nse=100k; 825/544 vs 6942/6627
-# at 10k/1M (6.3-12.2x)
-csrmv_dt2t_p.set_default('tpu', 'pallas')
 csrmv_dt2t_p.def_jvp_rule2(_dt2t_mv_jvp_y, _dt2t_mv_jvp_w, None, None)
 csrmv_dt2t_p.def_transpose_rule(_dt2t_mv_transpose_rule)
 csrmv_dt2t_p.def_general_batching()
@@ -199,12 +165,6 @@ csrmm_dt2t_p = XLACustomKernel(
         '(reference brainevent/_csr/dt2t.py:546).',
 )
 csrmm_dt2t_p.def_jax_kernel(_dt2t_mm_jax_kernel, asdefault=True)
-csrmm_dt2t_p.def_pallas_kernel(
-    lambda **p: _dt2t_mm_jax_kernel(**p), alias_of='jax_raw',
-    note='batched per-nse broadcast gathers whole B-wide trace ROWS '
-         '(contiguous, near-bandwidth in XLA, unlike the mv case whose '
-         'element gather the pair-gather kernel replaced at 6-12x — '
-         'csrmv_dt2t); a batched pair-gather variant is future work')
 csrmm_dt2t_p.def_general_batching()
 csrmm_dt2t_p.def_tags('csr', 'dt2t', 'mm')
 

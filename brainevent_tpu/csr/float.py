@@ -19,11 +19,10 @@
 matrix version. These are the workhorses behind the AD rules of the binary
 (event) products.
 
-TPU formulation: the gather direction is a take + segment-sum over the nse
-axis; the scatter direction (transpose) routes through
-:func:`brainevent_tpu.ops.scatter.event_scatter_add` (MXU one-hot matmul for
-small outputs, XLA scatter otherwise) — the atomics-free replacement for the
-reference's CUDA hybrid kernels.
+Formulation: both directions are a take over the nse axis followed by
+:func:`brainevent_tpu.ops.scatter.event_scatter_add` — XLA's scatter-add,
+which lowers to atomics on the GPU like the reference's CUDA hybrid
+kernels.
 """
 
 from typing import Optional
@@ -36,7 +35,7 @@ from .._misc import namescope
 from ..ops.core import XLACustomKernel
 from ..ops.util import general_batching_rule
 from ..ops.benchmark import BenchmarkConfig
-from ..ops.scatter import event_scatter_add, segment_sum_sorted
+from ..ops.scatter import event_scatter_add
 from ..units import maybe_unit, split_mantissa_unit
 from ._common import csr_checks, is_homo, row_ids_from_indptr
 
@@ -65,29 +64,9 @@ def _csrmv_jax_kernel(*, shape, transpose, **params):
             contrib = w * v[rows]
             return (event_scatter_add(indices, contrib, k, dtype=out_dtype),)
         contrib = w * v[indices]
-        # measured: segment_sum(sorted) lowers slower than scatter-add
         return (event_scatter_add(rows, contrib, m, dtype=out_dtype),)
 
     return kernel
-
-
-def _csrmv_pallas_kernel(*, shape, transpose, platform=None, **params):
-    """Alias of the XLA kernel (registered with ``alias_of='jax_raw'``).
-
-    The fast float product on TPU is the blocked one-hot MXU plan route
-    (``ops/mxu_gather.py``): measured 843 us/call exact (566 us with the
-    passes=2 bf16 split) vs 7.55 ms for this XLA route at (10k,10k,1%) —
-    9.0-13.3x (BENCH_NOTES "GatherPlan sweep"). Plans bucket the
-    structure host-side, so they bind at the data-structure layer
-    (``CSR.build_mxu_plan()`` then ``@``), not inside this traced
-    primitive — mirroring the reference, whose csrmv also binds
-    structure at wrap time (cusparse descriptors,
-    ``/root/reference/brainevent/_csr/binary.py:534``). With traced
-    structure the XLA segment-sum/gather formulation is what remains;
-    the event-driven variants (``binary_csrmv``) carry the real Mosaic
-    kernel.
-    """
-    return _csrmv_jax_kernel(shape=shape, transpose=transpose, **params)
 
 
 def _csrmv_jvp_weights(w_dot, weights, indices, indptr, vector, **params):
@@ -116,18 +95,16 @@ def _csrmv_transpose_rule(ct, weights, indices, indptr, vector, **params):
     nse = indices.shape[0]
     w_aval = getattr(weights, 'aval', weights)   # UndefinedPrimal here
     if nse >= 500_000 and getattr(w_aval, 'size', 0) != 1:
-        # the weight-gradient gathers are the 14 ns/element XLA floor
-        # (measured 20.8 ms at (10k,10k,1%) vs 845 us for the vector
-        # gradient — BENCH_GRAD_r04); warn ONCE at trace time so a
-        # training loop on the slow path is never silent about it
+        # the weight gradient is two per-nonzero gathers every call; warn
+        # ONCE at trace time so a training loop on this path is never
+        # silent about it
         import warnings
         warnings.warn(
-            f'jax.grad w.r.t. CSR weights at nse={nse} takes the XLA '
-            f'gather path (~14 ns/element per step). Training loops '
-            f'should hoist the plan permutation out of the scan and use '
-            f'the fused backward instead (models/training.py, '
-            f'ops/mxu_gather.plan_matvec_dw) — measured 25x at this '
-            f'scale. Silence with warnings.filterwarnings.',
+            f'jax.grad w.r.t. CSR weights at nse={nse} gathers both '
+            f'endpoints of every nonzero per call. Recurrent training '
+            f'loops can use the fixed-degree ELL layout with its shared-'
+            f'gather backward instead (models/training.ell_recurrent). '
+            f'Silence with warnings.filterwarnings.',
             stacklevel=3)
     rows = row_ids_from_indptr(indptr, nse)
     if transpose:
@@ -158,10 +135,6 @@ csrmv_p = XLACustomKernel(
     doc='Float CSR SpMV (reference brainevent/_csr/float.py:49).',
 )
 csrmv_p.def_jax_kernel(_csrmv_jax_kernel, asdefault=True)
-csrmv_p.def_pallas_kernel(
-    _csrmv_pallas_kernel, alias_of='jax_raw',
-    note='dense-rate CSR product: XLA segment-sum is the measured TPU '
-         'formulation; the event kernel needs spike gating to win')
 csrmv_p.def_jvp_rule2(_csrmv_jvp_weights, None, None, _csrmv_jvp_vector)
 csrmv_p.def_transpose_rule(_csrmv_transpose_rule)
 csrmv_p.def_batching_rule(_csrmv_batching)
@@ -293,18 +266,6 @@ csrmm_p = XLACustomKernel(
     doc='Float CSR SpMM (reference brainevent/_csr/float.py:559).',
 )
 csrmm_p.def_jax_kernel(_csrmm_jax_kernel, asdefault=True)
-csrmm_p.def_pallas_kernel(
-    lambda **params: _csrmm_jax_kernel(**params),
-    alias_of='jax_raw',
-    note='traced-operand route: segment-sum (measured r4e, v5e: '
-         '2,367/2,356 us/call NT/T at (5k,5k,1%,B=128), 16,570/16,455 '
-         'at (10k,10k,1%,B=256)). Concrete-structure products take the '
-         'CLASS fast paths instead: the cached-dense mirror inside '
-         'config.get_dense_mm_max_bytes() (185/200 us at the 5k row) '
-         'and, above it, the plan-based batched-gather mm KERNEL '
-         '(ops/mxu_gather.gather_matmat, r5: 3.70 ms exact f32 / '
-         '2.35 ms at mm_passes=2 / 1.4 ms binary at the 10k row — '
-         '4.5-12x; auto on CSR/CSC 2-D products)')
 csrmm_p.def_jvp_rule2(_csrmm_jvp_weights, None, None, _csrmm_jvp_B)
 csrmm_p.def_transpose_rule(_csrmm_transpose_rule)
 csrmm_p.def_general_batching()

@@ -21,10 +21,10 @@ event-driven primitives depending on the operand type. A CSR matrix lazily
 caches its CSC mirror structure (``build_weight_indices``) for
 unfavorable-direction products and post-driven plasticity.
 
-TPU deviation from the reference: no binary task workspaces are attached to
+Deviation from the reference: no binary task workspaces are attached to
 matrices (the CUDA hybrid-kernel machinery of
-``brainevent/_csr/main.py:60-175``); the scatter direction is handled by
-atomics-free strategies in :mod:`brainevent_tpu.ops.scatter`.
+``brainevent/_csr/main.py:60-175``); the scatter direction is XLA's scatter-add
+(:mod:`brainevent_tpu.ops.scatter`).
 """
 
 from typing import Tuple
@@ -110,11 +110,6 @@ class CompressedSparseData(DataRepresentation):
         obj._buffers['_t_indptr'] = self._t_indptr
         obj._buffers['_t_indices'] = self._t_indices
         obj._buffers['_t_perm'] = self._t_perm
-        if indices is None and indptr is None:
-            # the MXU plan pair is structure-only: it survives data swaps
-            # (with_data, elementwise algebra); the sorted weight VIEWS do
-            # not carry — they are re-derived lazily from the new data
-            obj._mxu_plans = getattr(self, '_mxu_plans', None)
         return obj
 
     def with_data(self, data):
@@ -166,231 +161,6 @@ class CompressedSparseData(DataRepresentation):
     def weight_indices(self):
         """Permutation mapping mirror slots to data slots (or ``None``)."""
         return self._t_perm
-
-    # -- MXU float route -------------------------------------------------------
-
-    def build_mxu_plan(self, **knobs):
-        """Build and cache the blocked one-hot MXU layout for the float
-        products (both directions) — the TPU counterpart of the reference's
-        lazy CSC mirror (``brainevent/_csr/main.py:1321``), measured ~18x
-        over the XLA scatter route at (10k, 10k, 1%). Requires concrete
-        structure (call outside ``jit``); returns self.
-
-        Calling this manually is no longer required on TPU: the first
-        float 1-D product auto-builds the plan pair when the structure is
-        concrete and ``nse >= config.get_mxu_plan_min_nse()`` (see
-        :func:`brainevent_tpu.config.set_auto_mxu_plan`). The plan pair is
-        structure-only and survives ``with_data``; the sorted weight views
-        are re-derived lazily when the data buffer changes.
-
-        The cache is not a pytree leaf: instances that cross a
-        ``jit``/``grad`` boundary as ARGUMENTS lose it and fall back to
-        the XLA kernels (keeping AD w.r.t. ``data`` exact). Use the matrix
-        as a closure constant to keep the fast path; gradients w.r.t. the
-        product VECTOR then ride the plan pair through a custom VJP
-        (``ops/mxu_gather.plan_matvec_vjp`` — measured 1.7 ms vs 21.1 ms
-        for ``jax.grad`` through ``csrmv`` at (10k, 10k, 1%)). Gradients
-        w.r.t. traced DATA stay on the XLA primitive: the per-call
-        nnz<->plan permutation costs more than it saves (7.4 ms/1M
-        elements); training loops hoist it instead (``models/training.py``).
-        """
-        if getattr(self, '_mxu_plans', None) is None:
-            from ..ops.mxu_gather import build_gather_plan
-            import jax.core as jcore
-            for a in (self.indices, self.indptr):
-                if isinstance(a, jcore.Tracer):
-                    raise UnsupportedOperationError(
-                        'build_mxu_plan needs concrete structure; '
-                        'call it outside jit/grad.')
-            indices = np.asarray(self.indices)
-            indptr = np.asarray(self.indptr)
-            m, k = self._csr_shape()
-            rows = np.repeat(np.arange(m), np.diff(indptr))
-            plan = build_gather_plan(rows, indices, (m, k), **knobs)
-            plan_t = build_gather_plan(indices, rows, (k, m), **knobs)
-            self._mxu_plans = (plan, plan_t)
-        return self
-
-    def _auto_mxu_plans(self):
-        """Lazily auto-build the plan pair at the first float product
-        (the reference's lazy-CSC-mirror moment). Returns the pair or
-        ``None`` when gated off / structure traced / nse below threshold."""
-        plans = getattr(self, '_mxu_plans', None)
-        if plans is not None:
-            return plans
-        from .. import config as _cfg
-        mode = _cfg.get_auto_mxu_plan()
-        if mode is False:
-            return None
-        if mode == 'auto':
-            from .._compat import default_platform
-            if default_platform() != 'tpu':
-                return None
-        if self.nse < _cfg.get_mxu_plan_min_nse():
-            return None
-        import jax.core as jcore
-        if any(isinstance(a, jcore.Tracer)
-               for a in (self.indices, self.indptr)):
-            return None
-        self.build_mxu_plan()
-        return self._mxu_plans
-
-    def _mxu_weight_views(self, plans):
-        """Sorted weight views for the plan pair, cached per data buffer
-        (invalidated by ``with_data``/elementwise algebra, which create a
-        new instance without the view cache). ``None`` when the data is a
-        tracer — traced-weight products stay on the XLA kernels so AD
-        w.r.t. data remains on the primitive's exact rules."""
-        views = getattr(self, '_mxu_wviews', None)
-        if views is not None:
-            return views
-        import jax.core as jcore
-        data = get_mantissa(self.data)
-        if isinstance(data, jcore.Tracer):
-            return None
-        plan, plan_t = plans
-        self._mxu_wviews = (plan.sort_data(data), plan_t.sort_data(data))
-        return self._mxu_wviews
-
-    def _mxu_matvec(self, v, *, csr_transpose: bool):
-        """Float matvec through the cached MXU plan, or ``None``.
-
-        ``csr_transpose`` refers to the stored row-compressed view (matches
-        the ``transpose=`` argument of ``csrmv`` on ``_csr_shape()``).
-        """
-        if get_mantissa(v).ndim != 1:
-            return None
-        if jnp.dtype(get_mantissa(self.data).dtype) == jnp.float64:
-            return None          # keep x64 exact on the XLA kernels
-        plans = self._auto_mxu_plans()
-        if plans is None:
-            return None
-        views = self._mxu_weight_views(plans)
-        if views is None:
-            return None
-        from ..ops.mxu_gather import plan_matvec_vjp
-        plan, plan_t = plans
-        w_s, w_t = views
-        v_m, v_unit = split_mantissa_unit(v)
-        _, d_unit = split_mantissa_unit(self.data)
-        if csr_transpose:
-            out = plan_matvec_vjp(plan_t, plan, w_t, w_s, v_m)
-        else:
-            out = plan_matvec_vjp(plan, plan_t, w_s, w_t, v_m)
-        return maybe_unit(out.astype(get_mantissa(self.data).dtype),
-                          d_unit, v_unit)
-
-    def _mxu_matmat(self, B, *, csr_transpose: bool,
-                    transpose_out: bool = False):
-        """Float mat-mat through a cached DENSE mirror, or ``None``.
-
-        The MXU crossover (BENCH_NOTES r4f): at the reference's mm
-        shapes (5k-10k, ~1% density, batch 128-256) the dense matmul
-        retires its 100x MAC overhead in ~0.1-0.7 ms while the
-        segment-sum route pays 2.4-16.6 ms of serialized gathers — so
-        with concrete data on TPU and the dense form inside
-        ``config.get_dense_mm_max_bytes()``, 2-D products run
-        ``D @ B`` on a lazily cached dense mirror. ``D`` is a concrete
-        constant, so ``jax.grad`` w.r.t. ``B`` differentiates the
-        matmul natively; traced-data instances return ``None`` (exact
-        AD w.r.t. ``data`` stays on the primitive).
-
-        Above the dense budget (the 10k reference shapes on
-        relay-attached hosts) the product falls through to the blocked
-        one-hot mm KERNEL over a cached plan pair
-        (``ops/mxu_gather.gather_matmat`` — measured 4.2 ms exact /
-        2.5 ms at ``mm_passes=2`` vs 16.5 ms segment-sum at
-        (10k, 10k, 1%, B=256), BENCH_NOTES r5)."""
-        B_m = get_mantissa(B)
-        if B_m.ndim != 2:
-            return None
-        if jnp.dtype(get_mantissa(self.data).dtype) == jnp.float64:
-            return None
-        from .. import config as _cfg
-        mode = _cfg.get_auto_mxu_plan()
-        if mode is False:
-            return None
-        if mode == 'auto':
-            from .._compat import default_platform
-            if default_platform() != 'tpu':
-                return None
-        budget = _cfg.get_dense_mm_max_bytes()
-        m, k = self._csr_shape()
-        if self.nse < _cfg.get_mxu_plan_min_nse():
-            return None
-        import jax.core as jcore
-        data = get_mantissa(self.data)
-        if any(isinstance(a, jcore.Tracer)
-               for a in (self.indices, self.indptr, data)):
-            return None
-        if budget <= 0 or 4 * m * k > budget:
-            return self._mxu_plan_matmat(
-                B, csr_transpose=csr_transpose,
-                transpose_out=transpose_out)
-        D = getattr(self, '_mxu_dense', None)
-        if D is None:
-            rows, cols = csr_to_coo_index(self.indptr, self.indices)
-            d = (jnp.broadcast_to(data, (self.nse,))
-                 if data.shape[0] == 1 else data)
-            D = jnp.zeros((m, k), jnp.float32).at[rows, cols].add(
-                d.astype(jnp.float32))
-            self._mxu_dense = D
-        _, d_unit = split_mantissa_unit(self.data)
-        B_v, b_unit = split_mantissa_unit(B)
-        Bf = B_v.astype(jnp.float32)
-        out = jax.lax.dot_general(
-            D, Bf,
-            dimension_numbers=((((0,) if csr_transpose else (1,)),
-                                (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST)
-        if transpose_out:
-            out = out.T
-        return maybe_unit(out.astype(data.dtype), d_unit, b_unit)
-
-    def _mxu_plan_matmat(self, B, *, csr_transpose: bool,
-                         transpose_out: bool = False):
-        """Float mat-mat through the blocked one-hot mm kernel over a
-        cached mm plan pair, or ``None`` (operand too wide for VMEM
-        residency). Gradients w.r.t. ``B`` ride the TRANSPOSED plan's
-        kernel (``ops/mxu_gather.plan_matmat_vjp``); weights here are
-        concrete cached views, exactly like the mv plan route."""
-        from ..ops.mxu_gather import (build_mm_plan, _mm_vmem_ok,
-                                      plan_matmat_vjp)
-        from .. import config as _cfg
-        B_m = get_mantissa(B)
-        plans = getattr(self, '_mm_plans', None)
-        if plans is None:
-            indices = np.asarray(self.indices)
-            indptr = np.asarray(self.indptr)
-            m, k = self._csr_shape()
-            rows = np.repeat(np.arange(m), np.diff(indptr))
-            plan = build_mm_plan(rows, indices, (m, k))
-            plan_t = build_mm_plan(indices, rows, (k, m))
-            self._mm_plans = plans = (plan, plan_t)
-        plan, plan_t = plans
-        passes = _cfg.get_mm_passes()
-        if not (_mm_vmem_ok(plan, B_m.shape[1], passes)
-                and _mm_vmem_ok(plan_t, B_m.shape[1], passes)):
-            return None
-        views = getattr(self, '_mm_wviews', None)
-        if views is None:
-            data = get_mantissa(self.data)
-            self._mm_wviews = views = (plan.sort_data(data),
-                                       plan_t.sort_data(data))
-        w_s, w_t = views
-        data = get_mantissa(self.data)
-        _, d_unit = split_mantissa_unit(self.data)
-        B_v, b_unit = split_mantissa_unit(B)
-        Bf = B_v.astype(jnp.float32)
-        if csr_transpose:
-            out = plan_matmat_vjp(plan_t, plan, w_t, w_s, Bf,
-                                  passes=passes)
-        else:
-            out = plan_matmat_vjp(plan, plan_t, w_s, w_t, Bf,
-                                  passes=passes)
-        if transpose_out:
-            out = out.T
-        return maybe_unit(out.astype(data.dtype), d_unit, b_unit)
 
     def _csr_shape(self) -> Tuple[int, int]:
         """Logical shape of the row-compressed view stored in (indices,
@@ -556,14 +326,8 @@ class CSR(CompressedSparseData):
                                 shape=self.shape, transpose=False)
         other = extract_raw_value(other)
         if getattr(other, 'ndim', 0) == 1:
-            fast = self._mxu_matvec(other, csr_transpose=False)
-            if fast is not None:
-                return fast
             return csrmv(self.data, self.indices, self.indptr, other,
                          shape=self.shape, transpose=False)
-        fast = self._mxu_matmat(other, csr_transpose=False)
-        if fast is not None:
-            return fast
         return csrmm(self.data, self.indices, self.indptr, other,
                      shape=self.shape, transpose=False)
 
@@ -579,15 +343,8 @@ class CSR(CompressedSparseData):
                                 shape=self.shape, transpose=True).T
         other = extract_raw_value(other)
         if getattr(other, 'ndim', 0) == 1:
-            fast = self._mxu_matvec(other, csr_transpose=True)
-            if fast is not None:
-                return fast
             return csrmv(self.data, self.indices, self.indptr, other,
                          shape=self.shape, transpose=True)
-        fast = self._mxu_matmat(other.T, csr_transpose=True,
-                                transpose_out=True)
-        if fast is not None:
-            return fast
         return csrmm(self.data, self.indices, self.indptr, other.T,
                      shape=self.shape, transpose=True).T
 
@@ -694,14 +451,8 @@ class CSC(CompressedSparseData):
                                 shape=(k, m), transpose=True)
         other = extract_raw_value(other)
         if getattr(other, 'ndim', 0) == 1:
-            fast = self._mxu_matvec(other, csr_transpose=True)
-            if fast is not None:
-                return fast
             return csrmv(self.data, self.indices, self.indptr, other,
                          shape=(k, m), transpose=True)
-        fast = self._mxu_matmat(other, csr_transpose=True)
-        if fast is not None:
-            return fast
         return csrmm(self.data, self.indices, self.indptr, other,
                      shape=(k, m), transpose=True)
 
@@ -717,15 +468,8 @@ class CSC(CompressedSparseData):
                                 shape=(k, m), transpose=False).T
         other = extract_raw_value(other)
         if getattr(other, 'ndim', 0) == 1:
-            fast = self._mxu_matvec(other, csr_transpose=False)
-            if fast is not None:
-                return fast
             return csrmv(self.data, self.indices, self.indptr, other,
                          shape=(k, m), transpose=False)
-        fast = self._mxu_matmat(other.T, csr_transpose=False,
-                                transpose_out=True)
-        if fast is not None:
-            return fast
         return csrmm(self.data, self.indices, self.indptr, other.T,
                      shape=(k, m), transpose=False).T
 

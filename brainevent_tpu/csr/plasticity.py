@@ -13,9 +13,8 @@
 # limitations under the License.
 # ==============================================================================
 
-"""CSR STDP weight updates (reference ``brainevent/_csr/plasticity_binary.py``
-— the one place the reference already ships Pallas-TPU kernels; semantics
-preserved, formulation re-designed for TPU tiles).
+"""CSR STDP weight updates (reference ``brainevent/_csr/plasticity_binary.py``;
+semantics preserved, one XLA formulation per direction).
 
 ``update_csr_on_binary_pre``:
     ``w[indptr[i]:indptr[i+1]] += post_trace[indices[...]]`` for spiking pre
@@ -57,43 +56,12 @@ def _on_pre_jax_kernel(*, shape, **params):
     return kernel
 
 
-def _on_pre_pallas_kernel(*, shape, platform=None, **params):
-    """Real Mosaic route: the structure gathers run as whole-operand
-    one-hot MXU contractions in nnz order (``ops/pair_gather.py``) — the
-    r3 blocked-FMA kernel was parity-only BECAUSE both routes paid the
-    same two XLA gathers (BENCH_NOTES r3f); this kernel removes them.
-    The event gate needs 1 bf16 pass (0/1 exact), the trace 3 (exact
-    f32). Falls back to the XLA form outside the envelope (x64,
-    > _MAX_BLOCKS operands)."""
-    nse = params['indices_info'].shape[0]
-    jax_k = _on_pre_jax_kernel(shape=shape, **params)
-
-    def kernel(weight, indices, indptr, pre_spike, post_trace):
-        from ..ops.pair_gather import pair_gather_product
-        if jnp.dtype(weight.dtype) == jnp.float64:
-            return jax_k(weight, indices, indptr, pre_spike, post_trace)
-        rows = row_ids_from_indptr(indptr, nse)
-        gate = event_gate(pre_spike, jnp.float32)
-        prod = pair_gather_product(rows, indices, gate, post_trace,
-                                   s_passes=1, x_passes=3,
-                                   platform=platform)
-        if prod is None:
-            return jax_k(weight, indices, indptr, pre_spike, post_trace)
-        return (weight + prod.astype(weight.dtype),)
-
-    return kernel
-
-
 update_csr_on_binary_pre_p = XLACustomKernel(
     'update_csr_on_binary_pre',
     doc='Pre-spike-driven CSR STDP update '
         '(reference brainevent/_csr/plasticity_binary.py:45).',
 )
 update_csr_on_binary_pre_p.def_jax_kernel(_on_pre_jax_kernel, asdefault=True)
-update_csr_on_binary_pre_p.def_pallas_kernel(_on_pre_pallas_kernel)
-# measured on a v5e (BENCH_PRIMS_r04.json / BENCH_NOTES r4b): pair-gather
-# 52.8 vs 982.9 us/call at n=1k/nse=100k (18.6x), 1038 vs 14341 at 10k/1M
-update_csr_on_binary_pre_p.set_default('tpu', 'pallas')
 update_csr_on_binary_pre_p.def_general_batching()
 
 
@@ -199,39 +167,7 @@ update_csr_on_binary_post_p = XLACustomKernel(
     doc='Post-spike-driven CSR STDP update '
         '(reference brainevent/_csr/plasticity_binary.py:477).',
 )
-def _on_post_pallas_kernel(*, shape, platform=None, **params):
-    """Real Mosaic route: MXU pair gather ``pre_trace[row] * gate[col]``
-    in nnz order (see the on-pre kernel; the reference's CSC-order
-    scatter formulation is not needed on TPU — the gather form visits
-    each weight exactly once, race-free)."""
-    nse = params['indices_info'].shape[0]
-    jax_k = _on_post_jax_kernel(shape=shape, **params)
-
-    def kernel(weight, indices, indptr, weight_indices, pre_trace,
-               post_spike):
-        from ..ops.pair_gather import pair_gather_product
-        if jnp.dtype(weight.dtype) == jnp.float64:
-            return jax_k(weight, indices, indptr, weight_indices,
-                         pre_trace, post_spike)
-        rows = row_ids_from_indptr(indptr, nse)
-        gate = event_gate(post_spike, jnp.float32)
-        prod = pair_gather_product(rows, indices, pre_trace, gate,
-                                   s_passes=3, x_passes=1,
-                                   platform=platform)
-        if prod is None:
-            return jax_k(weight, indices, indptr, weight_indices,
-                         pre_trace, post_spike)
-        return (weight + prod.astype(weight.dtype),)
-
-    return kernel
-
-
 update_csr_on_binary_post_p.def_jax_kernel(_on_post_jax_kernel, asdefault=True)
-# r3's blocked-FMA pallas kernel was parity (both routes paid the same XLA
-# structure gathers); the r4 pair-gather kernel removes them — measured
-# 104.3 vs 958.7 us/call at n=1k/nse=100k (9.2x), 981 vs 14403 at 10k/1M
-update_csr_on_binary_post_p.def_pallas_kernel(_on_post_pallas_kernel)
-update_csr_on_binary_post_p.set_default('tpu', 'pallas')
 update_csr_on_binary_post_p.def_general_batching()
 update_csr_on_binary_post_p.def_jvp_rule2(_plasticity_jvp_weight, None, None, None, None, None)
 update_csr_on_binary_post_p.def_transpose_rule(_plasticity_transpose)

@@ -16,7 +16,7 @@
 """CSR row slicing (reference ``brainevent/_csr/slice.py``).
 
 ``csr_slice_rows`` extracts selected rows of a CSR matrix as a **dense**
-``(len(rows), n_cols)`` matrix — static output shape, jit/TPU friendly. A
+``(len(rows), n_cols)`` matrix — static output shape, jit friendly. A
 custom gradient primitive (``csr_slice_rows_grad_p``) maps dense cotangents
 back onto the selected rows' nse slots.
 """
@@ -70,9 +70,6 @@ csr_slice_rows_p = XLACustomKernel(
         '(reference brainevent/_csr/slice.py:39).',
 )
 csr_slice_rows_p.def_jax_kernel(_slice_rows_jax_kernel, asdefault=True)
-csr_slice_rows_p.def_pallas_kernel(
-    lambda **p: _slice_rows_jax_kernel(**p), alias_of='jax_raw',
-    note='structure slicing is gather/cumsum bound; XLA take wins')
 csr_slice_rows_p.def_general_batching()
 csr_slice_rows_p.def_tags('csr', 'slice')
 
@@ -166,9 +163,6 @@ csr_slice_rows_grad_p = XLACustomKernel(
         '(reference brainevent/_csr/slice.py:300).',
 )
 csr_slice_rows_grad_p.def_jax_kernel(_slice_rows_grad_jax_kernel, asdefault=True)
-csr_slice_rows_grad_p.def_pallas_kernel(
-    lambda **p: _slice_rows_grad_jax_kernel(**p), alias_of='jax_raw',
-    note='structure slicing is gather/cumsum bound; XLA take wins')
 csr_slice_rows_grad_p.def_general_batching()
 csr_slice_rows_grad_p.def_tags('csr', 'slice', 'grad')
 

@@ -17,16 +17,16 @@
 (reference ``brainevent/_csr/spsolve.py:26``).
 
 The reference delegates to ``jax.experimental.sparse.linalg.spsolve``
-(cuSolver QR) — a CUDA-only path. XLA has no sparse direct solver on
-TPU/CPU, so this module dispatches by size:
+(cuSolver QR). This module dispatches by size instead, with the same code
+on every platform:
 
 - **direct** (``n <= dense_limit``, default 4096): densify and
-  ``jnp.linalg.solve`` on the MXU — fast and robust for the moderate
+  ``jnp.linalg.solve`` — fast and robust for the moderate
   conductance systems SNN models solve, but O(n^2) memory.
 - **iterative** (above the limit, or ``method='iterative'``): matrix-free
   BiCGSTAB (``jax.scipy.sparse.linalg.bicgstab``) whose matvec is this
   library's own :func:`~brainevent_tpu.csrmv` primitive — O(nnz) memory
-  per iteration at any scale, the TPU-native answer for large systems.
+  per iteration at any scale, for large systems.
 """
 
 import jax
@@ -46,8 +46,8 @@ def csr_solve(data, indices, indptr, b, tol=1e-6, reorder=1, *,
     """Solve ``A x = b`` with square ``A`` in CSR form.
 
     Parameters mirror the reference (``tol``/``reorder`` feed cuSolver on
-    CUDA backends). ``method`` selects the TPU/CPU path: ``'direct'``
-    (dense MXU solve, O(n^2) memory), ``'iterative'`` (matrix-free
+    CUDA backends). ``method`` selects the path: ``'direct'``
+    (dense solve, O(n^2) memory), ``'iterative'`` (matrix-free
     BiCGSTAB over :func:`csrmv`, O(nnz)), or ``'auto'`` — direct up to
     ``dense_limit`` unknowns, iterative beyond.
     """

@@ -19,8 +19,8 @@
 ``update_dense_on_binary_post``: ``W[:, j] += pre_trace`` for spiking post ``j``.
 Both optionally clip to ``[w_min, w_max]``.
 
-On TPU these are rank-1 outer-product updates — pure VPU work that XLA fuses
-into a single pass over ``W``; a Pallas variant tiles the row/column blocks.
+These are rank-1 outer-product updates — elementwise work that XLA fuses
+into a single pass over ``W``.
 """
 
 from typing import Optional
@@ -30,7 +30,6 @@ import jax.numpy as jnp
 
 from .._misc import namescope
 from ..ops.core import XLACustomKernel
-from ..ops.pallas_utils import interpret_mode, cdiv
 from ..units import maybe_unit, split_mantissa_unit
 
 __all__ = [
@@ -52,78 +51,10 @@ def _on_pre_jax_kernel(**params):
     return kernel
 
 
-def _on_pre_pallas_kernel(platform=None, **params):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    out_info = params['outs'][0]
-    if jnp.dtype(out_info.dtype) == jnp.float64:
-        # Mosaic computes f32; keep x64 results exact on the XLA kernel.
-        return _on_pre_jax_kernel(**params)
-    m, n = out_info.shape
-    bm = min(512, max(8, m))
-
-    def kern(w_ref, s_ref, t_ref, o_ref):
-        gate = _spike_gate(s_ref[:], w_ref.dtype)
-        o_ref[:] = w_ref[:] + gate[:, None] * t_ref[:][None, :]
-
-    def run(weight, spike, trace):
-        out = pl.pallas_call(
-            kern,
-            grid=(cdiv(m, bm),),
-            in_specs=[
-                pl.BlockSpec((bm, n), lambda i: (i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((bm,), lambda i: (i,), memory_space=pltpu.VMEM),
-                pl.BlockSpec((n,), lambda i: (0,), memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((bm, n), lambda i: (i, 0),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct(out_info.shape, out_info.dtype),
-            interpret=interpret_mode(platform),
-        )(weight, spike, trace)
-        return (out,)
-
-    return run
-
-
 def _on_post_jax_kernel(**params):
     def kernel(weight, trace, spike):
         return [weight + jnp.outer(trace, _spike_gate(spike, weight.dtype))]
     return kernel
-
-
-def _on_post_pallas_kernel(platform=None, **params):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    out_info = params['outs'][0]
-    if jnp.dtype(out_info.dtype) == jnp.float64:
-        # Mosaic computes f32; keep x64 results exact on the XLA kernel.
-        return _on_post_jax_kernel(**params)
-    m, n = out_info.shape
-    bm = min(512, max(8, m))
-
-    def kern(w_ref, t_ref, s_ref, o_ref):
-        gate = _spike_gate(s_ref[:], w_ref.dtype)
-        o_ref[:] = w_ref[:] + t_ref[:][:, None] * gate[None, :]
-
-    def run(weight, trace, spike):
-        out = pl.pallas_call(
-            kern,
-            grid=(cdiv(m, bm),),
-            in_specs=[
-                pl.BlockSpec((bm, n), lambda i: (i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((bm,), lambda i: (i,), memory_space=pltpu.VMEM),
-                pl.BlockSpec((n,), lambda i: (0,), memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((bm, n), lambda i: (i, 0),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct(out_info.shape, out_info.dtype),
-            interpret=interpret_mode(platform),
-        )(weight, trace, spike)
-        return (out,)
-
-    return run
 
 
 update_dense_on_binary_pre_p = XLACustomKernel(
@@ -132,7 +63,6 @@ update_dense_on_binary_pre_p = XLACustomKernel(
         '(reference brainevent/_dense/plasticity_binary.py:42).',
 )
 update_dense_on_binary_pre_p.def_jax_kernel(_on_pre_jax_kernel, asdefault=True)
-update_dense_on_binary_pre_p.def_pallas_kernel(_on_pre_pallas_kernel)
 update_dense_on_binary_pre_p.def_general_batching()
 
 
@@ -160,7 +90,6 @@ update_dense_on_binary_post_p = XLACustomKernel(
         '(reference brainevent/_dense/plasticity_binary.py:360).',
 )
 update_dense_on_binary_post_p.def_jax_kernel(_on_post_jax_kernel, asdefault=True)
-update_dense_on_binary_post_p.def_pallas_kernel(_on_post_pallas_kernel)
 update_dense_on_binary_post_p.def_general_batching()
 update_dense_on_binary_post_p.def_jvp_rule2(_plasticity_jvp_weight, None, None)
 update_dense_on_binary_post_p.def_transpose_rule(_plasticity_transpose)

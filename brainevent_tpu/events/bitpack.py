@@ -19,8 +19,8 @@
 ``bitpack`` packs 32 binary values per uint32 word; bit ``b`` of word ``w``
 is element ``w*32 + b`` along the packed axis. :class:`BitPackedBinary`
 keeps the original value (for autodiff and dense products) plus per-axis
-packed copies, which compress spike traffic 32x — on TPU this matters for
-HBM bandwidth and for staging whole spike vectors in VMEM.
+packed copies, which compress spike traffic 32x — what matters for
+device-memory bandwidth.
 """
 
 import jax

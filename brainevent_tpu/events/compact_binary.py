@@ -17,7 +17,7 @@
 (reference ``brainevent/_event/compact_binary.py:53``).
 
 The static-capacity active-index list (``active_ids``/``n_active``) is the
-key structure for TPU event-driven kernels: downstream scatter/gather ops
+key structure for event-driven kernels: downstream scatter/gather ops
 iterate only over ``active_ids[:n_active]`` (masked to the static capacity),
 turning per-step work from O(n) into O(events) without dynamic shapes.
 """

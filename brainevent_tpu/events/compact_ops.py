@@ -18,11 +18,10 @@
 Eight static-capacity encoders that turn dense spike arrays into
 index-compacted structures. All outputs have *static* shapes (capacity =
 input size) with a separate valid-count — the design that makes event-driven
-dispatch compatible with ``jax.jit``/TPU static shapes.
+dispatch compatible with ``jax.jit`` static shapes.
 
-Every primitive registers a ``jax_raw`` kernel on every platform. On TPU
-these are prefix-sum + scatter formulations that XLA compiles well; the
-scatters ride :mod:`brainevent_tpu.ops.scatter` strategies where profitable.
+Every primitive registers one ``jax_raw`` kernel, for every platform:
+sort, prefix-sum and scatter formulations that XLA compiles.
 """
 
 from typing import Optional
@@ -54,11 +53,9 @@ def _compact_indices(mask_flat, ids):
 
     Returns ``(compacted_ids, count)``; invalid tail entries are zero.
     Formulated as a single-operand sort (actives keep their ids, inactive
-    lanes sort to the back as ``n``) instead of a cumsum+scatter: XLA's
-    serialized scatter costs ~5-7 ns/element on TPU (300 us/call at 64k
-    — it dominated the JITCNet step, BENCH_NOTES r4d) while the bitonic
-    sort is ~30 us at the same size. Ascending id order is preserved, so
-    outputs are bitwise identical to the scatter form.
+    lanes sort to the back as ``n``) instead of a cumsum+scatter.
+    Ascending id order is preserved, so outputs are bitwise identical to
+    the scatter form.
     """
     n = mask_flat.shape[0]
     active = mask_flat.astype(jnp.int32)
@@ -466,59 +463,6 @@ def binary_2d_csc_from_array(spikes, *, backend: Optional[str] = None):
     spikes = jnp.asarray(spikes)
     return binary_2d_csc_encode_p_call(spikes, backend=backend)
 
-
-def _csr_row_count_pallas_kernel(platform=None, **params):
-    """True Pallas row-count kernel: row-block tiles reduced on the VPU."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    from ..ops.pallas_utils import interpret_mode, cdiv
-
-    # 2-D output: 1-D out blocks hit XLA-vs-Mosaic tiling mismatches on
-    # hardware (dense/binary.py has the same note); the wrapper flattens.
-    def kern(spikes_ref, o_ref):
-        mask = _mask_of(spikes_ref[:])
-        o_ref[:] = jnp.sum(mask.astype(jnp.int32), axis=1,
-                           keepdims=True).reshape(1, -1)
-
-    def kernel(spikes):
-        n, b = spikes.shape
-        bn = min(512, max(8, n))
-        g = cdiv(n, bn)
-        sp = jnp.pad(spikes, ((0, g * bn - n), (0, 0)))
-        out = pl.pallas_call(
-            kern,
-            grid=(g,),
-            in_specs=[pl.BlockSpec((bn, b), lambda i: (i, 0),
-                                   memory_space=pltpu.VMEM)],
-            out_specs=pl.BlockSpec((1, bn), lambda i: (i, 0),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((g, bn), jnp.int32),
-            interpret=interpret_mode(platform),
-        )(sp)
-        return (out.reshape(g * bn)[:n],)
-
-    return kernel
-
-
-binary_2d_csr_row_count_p.def_pallas_kernel(_csr_row_count_pallas_kernel)
-
-# The remaining encoders are prefix-sum + scatter formulations; Mosaic has
-# no scattered vector stores, so their TPU-optimal expression IS the fused
-# XLA program — the pallas backend aliases it (same contract as the
-# csr/fcn scatter-direction primitives).
-for _p, _gen in (
-    (binary_1d_array_index_p, _binary_1d_array_index_jax_kernel),
-    (binary_2d_compact_only_p, _binary_2d_compact_only_jax_kernel),
-    (binary_2d_array_index_p, _binary_2d_array_index_jax_kernel),
-    (binary_2d_pair_stream_encode_p, _binary_2d_pair_stream_encode_jax_kernel),
-    (binary_2d_row_sparse_encode_p, _binary_2d_row_sparse_encode_jax_kernel),
-    (binary_2d_csr_fill_p, _binary_2d_csr_fill_jax_kernel),
-    (binary_2d_csc_encode_p, _binary_2d_csc_encode_jax_kernel),
-):
-    _p.def_pallas_kernel(
-        _gen, alias_of='jax_raw',
-        note='prefix-sum + scatter encoder: Mosaic has no scattered vector '
-             'stores, the fused XLA program is the TPU-optimal expression')
 
 # Generic batching for all encoders.
 for _p in (

@@ -22,13 +22,12 @@
 - ``transpose=True`` (scatter): ``y[indices[i,k]] += w[i,k] * gate(s[i])``
 
 The scatter direction is the hot path of event-driven SNN simulation
-(presynaptic spikes -> postsynaptic currents). The TPU design is a
+(presynaptic spikes -> postsynaptic currents). The design is a
 **compact-scatter**: active spike rows are stream-compacted into a static
 capacity buffer (``max(128, n_pre // divisor)``), only those rows' target
-indices are gathered and scattered (via the MXU one-hot strategy for small
-outputs), and a ``lax.cond`` falls back to the full scatter if more neurons
-fire than the capacity — exact at every firing rate, O(active x n_conn) in
-the steady state. This replaces the reference's CUDA scatter kernels with
+indices are gathered and scatter-added, and a ``lax.cond`` falls back to the
+full scatter if more neurons fire than the capacity — exact at every firing
+rate, O(active x n_conn) in the steady state. This replaces the reference's CUDA scatter kernels with
 atomicAdd (``_fcn/binary_fcnmv.cu``).
 """
 
@@ -182,35 +181,11 @@ def _binary_fcnmv_batching(args, axes, **params):
     return general_batching_rule(binary_fcnmv_p, args, axes, **params)
 
 
-def _binary_fcnmv_pallas_kernel(**p):
-    """Real Mosaic kernels (``fcn/pallas_kernels.py``): event compaction +
-    vectorized membership compares (gather) / one-hot MXU contraction
-    (scatter). Falls back to the XLA kernel when the VMEM guard trips."""
-    from .pallas_kernels import (fcn_event_gather_kernel,
-                                 fcn_event_scatter_kernel)
-    jax_kernel = _binary_fcnmv_jax_kernel(**p)
-    event_kernel = (fcn_event_scatter_kernel(**p) if p['transpose']
-                    else fcn_event_gather_kernel(**p))
-
-    def kernel(weights, indices, spikes):
-        out = event_kernel(weights, indices, spikes)
-        return out if out is not None else jax_kernel(weights, indices,
-                                                      spikes)
-
-    return kernel
-
-
 binary_fcnmv_p = XLACustomKernel(
     'binary_fcnmv',
     doc='Event-driven ELL matvec (reference brainevent/_fcn/binary.py:43).',
 )
 binary_fcnmv_p.def_jax_kernel(_binary_fcnmv_jax_kernel, asdefault=True)
-binary_fcnmv_p.def_pallas_kernel(_binary_fcnmv_pallas_kernel)
-# measured on a v5e (BENCH_PRIMS_r02 + BENCH_NOTES acceptance rows): the
-# event kernels win 9-47x in both directions at biological event rates
-# (10M-synapse gather 1.41 ms vs 66.8 ms); the generator falls back to
-# the XLA kernel beyond its VMEM envelope, so the default is safe.
-binary_fcnmv_p.set_default('tpu', 'pallas')
 binary_fcnmv_p.def_jvp_rule2(
     _binary_fcnmv_jvp_weights, None, _binary_fcnmv_jvp_spikes)
 binary_fcnmv_p.def_transpose_rule(_binary_fcnmv_transpose_rule)
@@ -343,9 +318,6 @@ binary_fcnmm_p = XLACustomKernel(
     doc='Event-driven ELL matmat (reference brainevent/_fcn/binary.py:564).',
 )
 binary_fcnmm_p.def_jax_kernel(_binary_fcnmm_jax_kernel, asdefault=True)
-binary_fcnmm_p.def_pallas_kernel(
-    lambda **p: _binary_fcnmm_jax_kernel(**p),
-    alias_of='jax_raw', note='mm/batch route: chunked one-hot MXU engine + segment-sum; measured at reference scale (BENCH_PRIMS_r04.json, v5e): binary_fcnmm 7,181/16,611 us NT/T at (10k,10k,K=100,B=256); the plan-based batched gather is ROADMAP item 2')
 binary_fcnmm_p.def_jvp_rule2(
     _binary_fcnmm_jvp_weights, None, _binary_fcnmm_jvp_S)
 binary_fcnmm_p.def_transpose_rule(_binary_fcnmm_transpose_rule)

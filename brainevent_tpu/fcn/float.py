@@ -106,10 +106,6 @@ fcnmv_p = XLACustomKernel(
     doc='Float ELL matvec (reference brainevent/_fcn/float.py:33).',
 )
 fcnmv_p.def_jax_kernel(_fcnmv_jax_kernel, asdefault=True)
-fcnmv_p.def_pallas_kernel(
-    lambda **p: _fcnmv_jax_kernel(**p), alias_of='jax_raw',
-    note='dense-rate ELL product: XLA gather+reduce is roofline; the event '
-         'kernels only win when gated by spikes (BENCH_NOTES.md)')
 fcnmv_p.def_jvp_rule2(_fcnmv_jvp_weights, None, _fcnmv_jvp_v)
 fcnmv_p.def_transpose_rule(_fcnmv_transpose_rule)
 fcnmv_p.def_batching_rule(_fcnmv_batching)
@@ -211,16 +207,6 @@ fcnmm_p = XLACustomKernel(
     doc='Float ELL matmat (reference brainevent/_fcn/float.py:136).',
 )
 fcnmm_p.def_jax_kernel(_fcnmm_jax_kernel, asdefault=True)
-fcnmm_p.def_pallas_kernel(
-    lambda **p: _fcnmm_jax_kernel(**p), alias_of='jax_raw',
-    note='traced-operand route: XLA gather+reduce (measured r4e, v5e: '
-         '102/2,615 us NT/T at (5k,5k,K=50,B=128), 7,282/16,779 at '
-         '(10k,10k,K=100,B=256)). Concrete-structure products take the '
-         'CLASS fast paths: dense mirror when ell_transpose and within '
-         'budget (251 vs 2,615 us at 5k), and the plan-based '
-         'batched-gather mm kernel above it (r5: 3.38 ms exact / '
-         '2.31 ms mm_passes=2 at the 10k row vs 7.3-16.8 XLA — both '
-         'directions win at 10k)')
 fcnmm_p.def_jvp_rule2(_fcnmm_jvp_weights, None, _fcnmm_jvp_B)
 fcnmm_p.def_transpose_rule(_fcnmm_transpose_rule)
 fcnmm_p.def_general_batching()

@@ -23,7 +23,7 @@ random connectivity and the storage behind event-driven EI networks.
 describe a logical ``(n_pre, n_post)`` matrix; ``transpose()`` flips between
 them zero-copy.
 
-ELL is *naturally* TPU-friendly: the ``(rows, n_conn)`` rectangles are
+ELL is naturally accelerator-friendly: the ``(rows, n_conn)`` rectangles are
 static-shape gathers/scatters with no indptr indirection.
 """
 
@@ -34,7 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .._data import DataRepresentation
-from .._error import MathError, UnsupportedOperationError
+from .._error import MathError
 from ..events.base import EventRepresentation, extract_raw_value
 from ..events.compact_binary import CompactBinary
 from ..units import get_mantissa, split_mantissa_unit, maybe_unit
@@ -108,209 +108,6 @@ class FixedNumConn(DataRepresentation):
     def nse(self) -> int:
         return self.indices.size
 
-    # -- MXU float route (the CSR counterpart lives in csr/main.py) ---------
-
-    def build_mxu_plan(self, **knobs):
-        """Build and cache the blocked one-hot MXU layout for the float
-        products (both directions of the stored ELL view) — measured ~1
-        ns/element vs XLA's ~14 ns/element gathers (BENCH_NOTES round 3).
-        Requires concrete structure (call outside ``jit``); returns self.
-
-        As on :class:`~brainevent_tpu.CSR`, the first float 1-D product
-        auto-builds the pair on TPU (``config.set_auto_mxu_plan``); the
-        plan pair is structure-only and survives ``with_data``, and
-        gradients w.r.t. the product vector ride the pair through
-        ``ops/mxu_gather.plan_matvec_vjp``. Traced-data products fall
-        back to the XLA kernels (AD w.r.t. ``data`` stays on the
-        primitive's exact rules; training loops hoist the permutation —
-        ``models/training.py``).
-        """
-        if getattr(self, '_mxu_plans', None) is None:
-            from ..ops.mxu_gather import build_gather_plan, plan_from_ell
-            import jax.core as jcore
-            if isinstance(self.indices, jcore.Tracer):
-                raise UnsupportedOperationError(
-                    'build_mxu_plan needs concrete structure; '
-                    'call it outside jit/grad.')
-            idx = np.asarray(self.indices)
-            rows_n, cols_n = self._ell_shape()
-            plan = plan_from_ell(idx, (rows_n, cols_n))
-            plan_t = build_gather_plan(
-                idx.reshape(-1), np.repeat(np.arange(rows_n), idx.shape[1]),
-                (cols_n, rows_n))
-            self._mxu_plans = (plan, plan_t)
-        return self
-
-    def _auto_mxu_plans(self):
-        """Lazy auto-build at the first float product (see the CSR
-        counterpart, ``csr/main.py``)."""
-        plans = getattr(self, '_mxu_plans', None)
-        if plans is not None:
-            return plans
-        from .. import config as _cfg
-        mode = _cfg.get_auto_mxu_plan()
-        if mode is False:
-            return None
-        if mode == 'auto':
-            from .._compat import default_platform
-            if default_platform() != 'tpu':
-                return None
-        if self.nse < _cfg.get_mxu_plan_min_nse():
-            return None
-        import jax.core as jcore
-        if isinstance(self.indices, jcore.Tracer):
-            return None
-        self.build_mxu_plan()
-        return self._mxu_plans
-
-    def _mxu_weight_views(self, plans):
-        views = getattr(self, '_mxu_wviews', None)
-        if views is not None:
-            return views
-        import jax.core as jcore
-        data = get_mantissa(self.data)
-        if isinstance(data, jcore.Tracer):
-            return None
-        plan, plan_t = plans
-        flat = (data if data.shape == (1,) else data.reshape(-1))
-        self._mxu_wviews = (plan.sort_data(flat), plan_t.sort_data(flat))
-        return self._mxu_wviews
-
-    def _mxu_matmat(self, B, *, ell_transpose: bool,
-                    transpose_out: bool = False):
-        """Float mat-mat through a cached DENSE mirror, or ``None``.
-
-        Same MXU crossover as ``CSR._mxu_matmat`` (BENCH_NOTES r4f):
-        concrete data on TPU + dense form within
-        ``config.get_dense_mm_max_bytes()`` runs ``D @ B`` on a lazily
-        cached dense ELL view; the mirror is a concrete constant so
-        operand grads differentiate natively; traced-data instances
-        return ``None`` (exact AD on the primitive)."""
-        B_m = get_mantissa(B)
-        if B_m.ndim != 2:
-            return None
-        if not ell_transpose:
-            # favorable (gather) direction: the ELL gather reads only
-            # K*rows values and beats the dense matmul at biological K
-            # (measured 102 vs 218 us at (5k,K=50,B=128) — BENCH_NOTES
-            # r4f); dense only pays in the scatter direction (2,615 ->
-            # 251 us, 10.4x)
-            return None
-        if jnp.dtype(get_mantissa(self.data).dtype) == jnp.float64:
-            return None
-        from .. import config as _cfg
-        mode = _cfg.get_auto_mxu_plan()
-        if mode is False:
-            return None
-        if mode == 'auto':
-            from .._compat import default_platform
-            if default_platform() != 'tpu':
-                return None
-        rows_n, cols_n = self._ell_shape()
-        budget = _cfg.get_dense_mm_max_bytes()
-        if self.nse < _cfg.get_mxu_plan_min_nse():
-            return None
-        import jax.core as jcore
-        data = get_mantissa(self.data)
-        if any(isinstance(a, jcore.Tracer) for a in (self.indices, data)):
-            return None
-        if budget <= 0 or 4 * rows_n * cols_n > budget:
-            # above the dense budget (10k reference shapes): the blocked
-            # one-hot mm kernel over the cached plan pair — same route
-            # as CSR._mxu_plan_matmat (BENCH_NOTES r5)
-            return self._mxu_plan_matmat(
-                B, ell_transpose=ell_transpose,
-                transpose_out=transpose_out)
-        D = getattr(self, '_mxu_dense', None)
-        if D is None:
-            D = get_mantissa(self._ell_dense()).astype(jnp.float32)
-            self._mxu_dense = D
-        _, d_unit = split_mantissa_unit(self.data)
-        B_v, b_unit = split_mantissa_unit(B)
-        out = jax.lax.dot_general(
-            D, B_v.astype(jnp.float32),
-            dimension_numbers=((((0,) if ell_transpose else (1,)),
-                                (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST)
-        if transpose_out:
-            out = out.T
-        return maybe_unit(out.astype(data.dtype), d_unit, b_unit)
-
-    def _mxu_plan_matmat(self, B, *, ell_transpose: bool,
-                         transpose_out: bool = False):
-        """Float mat-mat through the blocked one-hot mm kernel over a
-        cached mm plan pair (``ops/mxu_gather.gather_matmat``), or
-        ``None`` when the operand exceeds VMEM residency. Mirrors
-        ``CSR._mxu_plan_matmat``; the ELL flat order is row-major of the
-        ``(rows, K)`` table, matching ``GatherPlan.sort_data``."""
-        from ..ops.mxu_gather import (build_mm_plan, _mm_vmem_ok,
-                                      plan_matmat_vjp)
-        from .. import config as _cfg
-        import numpy as np
-        B_m = get_mantissa(B)
-        plans = getattr(self, '_mm_plans', None)
-        if plans is None:
-            idx = np.asarray(self.indices)
-            rows_n, cols_n = self._ell_shape()
-            n_rows, K = idx.shape
-            rows = np.repeat(np.arange(n_rows), K)
-            plan = build_mm_plan(rows, idx.reshape(-1), (rows_n, cols_n))
-            plan_t = build_mm_plan(idx.reshape(-1), rows, (cols_n, rows_n))
-            self._mm_plans = plans = (plan, plan_t)
-        plan, plan_t = plans
-        passes = _cfg.get_mm_passes()
-        if not (_mm_vmem_ok(plan, B_m.shape[1], passes)
-                and _mm_vmem_ok(plan_t, B_m.shape[1], passes)):
-            return None
-        views = getattr(self, '_mm_wviews', None)
-        if views is None:
-            data = get_mantissa(self.data)
-            flat = (data if data.shape == (1,) else data.reshape(-1))
-            self._mm_wviews = views = (plan.sort_data(flat),
-                                       plan_t.sort_data(flat))
-        w_s, w_t = views
-        data = get_mantissa(self.data)
-        _, d_unit = split_mantissa_unit(self.data)
-        B_v, b_unit = split_mantissa_unit(B)
-        Bf = B_v.astype(jnp.float32)
-        if ell_transpose:
-            out = plan_matmat_vjp(plan_t, plan, w_t, w_s, Bf,
-                                  passes=passes)
-        else:
-            out = plan_matmat_vjp(plan, plan_t, w_s, w_t, Bf,
-                                  passes=passes)
-        if transpose_out:
-            out = out.T
-        return maybe_unit(out.astype(data.dtype), d_unit, b_unit)
-
-    def _mxu_matvec(self, v, *, ell_transpose: bool):
-        """Float matvec through the cached MXU plan, or ``None``.
-
-        ``ell_transpose`` refers to the stored ELL view (matches the
-        ``transpose=`` argument of ``fcnmv`` on ``_ell_shape()``).
-        """
-        if get_mantissa(v).ndim != 1:
-            return None
-        if jnp.dtype(get_mantissa(self.data).dtype) == jnp.float64:
-            return None          # keep x64 exact on the XLA kernels
-        plans = self._auto_mxu_plans()
-        if plans is None:
-            return None
-        views = self._mxu_weight_views(plans)
-        if views is None:
-            return None
-        from ..ops.mxu_gather import plan_matvec_vjp
-        plan, plan_t = plans
-        w_s, w_t = views
-        v_m, v_unit = split_mantissa_unit(v)
-        _, d_unit = split_mantissa_unit(self.data)
-        if ell_transpose:
-            out = plan_matvec_vjp(plan_t, plan, w_t, w_s, v_m)
-        else:
-            out = plan_matvec_vjp(plan, plan_t, w_s, w_t, v_m)
-        return maybe_unit(out.astype(get_mantissa(self.data).dtype),
-                          d_unit, v_unit)
-
     @property
     def dtype(self):
         return get_mantissa(self.data).dtype
@@ -328,11 +125,7 @@ class FixedNumConn(DataRepresentation):
         return obj
 
     def with_data(self, data):
-        obj = type(self)((data, self.indices), shape=self.shape)
-        # structure-only plan pair survives data swaps; the sorted weight
-        # views are re-derived lazily from the new data (csr/main.py:_new)
-        obj._mxu_plans = getattr(self, '_mxu_plans', None)
-        return obj
+        return type(self)((data, self.indices), shape=self.shape)
 
     def apply(self, fn):
         return self.with_data(fn(self.data))
@@ -479,14 +272,8 @@ class FixedNumPerPre(FixedNumConn):
                       transpose=False)
         other = extract_raw_value(other)
         if getattr(other, 'ndim', 0) == 1:
-            fast = self._mxu_matvec(other, ell_transpose=False)
-            if fast is not None:
-                return fast
             return fcnmv(self.data, self.indices, other, shape=self.shape,
                          transpose=False)
-        fast = self._mxu_matmat(other, ell_transpose=False)
-        if fast is not None:
-            return fast
         return fcnmm(self.data, self.indices, other, shape=self.shape,
                      transpose=False)
 
@@ -500,15 +287,8 @@ class FixedNumPerPre(FixedNumConn):
                                 shape=self.shape, transpose=True).T
         other = extract_raw_value(other)
         if getattr(other, 'ndim', 0) == 1:
-            fast = self._mxu_matvec(other, ell_transpose=True)
-            if fast is not None:
-                return fast
             return fcnmv(self.data, self.indices, other, shape=self.shape,
                          transpose=True)
-        fast = self._mxu_matmat(other.T, ell_transpose=True,
-                                transpose_out=True)
-        if fast is not None:
-            return fast
         return fcnmm(self.data, self.indices, other.T, shape=self.shape,
                      transpose=True).T
 
@@ -592,14 +372,8 @@ class FixedNumPerPost(FixedNumConn):
                                 shape=self._ell_shape(), transpose=True)
         other = extract_raw_value(other)
         if getattr(other, 'ndim', 0) == 1:
-            fast = self._mxu_matvec(other, ell_transpose=True)
-            if fast is not None:
-                return fast
             return fcnmv(self.data, self.indices, other,
                          shape=self._ell_shape(), transpose=True)
-        fast = self._mxu_matmat(other, ell_transpose=True)
-        if fast is not None:
-            return fast
         return fcnmm(self.data, self.indices, other,
                      shape=self._ell_shape(), transpose=True)
 
@@ -614,14 +388,7 @@ class FixedNumPerPost(FixedNumConn):
                                 shape=self._ell_shape(), transpose=False).T
         other = extract_raw_value(other)
         if getattr(other, 'ndim', 0) == 1:
-            fast = self._mxu_matvec(other, ell_transpose=False)
-            if fast is not None:
-                return fast
             return fcnmv(self.data, self.indices, other,
                          shape=self._ell_shape(), transpose=False)
-        fast = self._mxu_matmat(other.T, ell_transpose=False,
-                                transpose_out=True)
-        if fast is not None:
-            return fast
         return fcnmm(self.data, self.indices, other.T,
                      shape=self._ell_shape(), transpose=False).T

@@ -49,36 +49,7 @@ fcn_plasticity_row_p = XLACustomKernel(
     doc='Row-driven ELL STDP update: data[i,k] += gate(spike[i]) * '
         'trace[indices[i,k]] (reference brainevent/_fcn/plasticity_binary.py:152).',
 )
-def _row_plasticity_pallas_kernel(platform=None, **params):
-    """Real Mosaic route: the trace gather ``trace[indices]`` runs as the
-    single-side MXU pair gather (``ops/pair_gather.py``) over the flat
-    ELL table — the same kernel that took ``update_csr_on_binary_pre``
-    from 983 to 53 us/call at nse=100k (BENCH_NOTES r4b). The row gate
-    is a free broadcast (rows are the uniform ELL layout). Falls back to
-    the XLA take outside the envelope (x64, oversized trace)."""
-    jax_k = _row_plasticity_jax_kernel(**params)
-
-    def kernel(data, indices, spike, trace):
-        from ..ops.pair_gather import pair_gather_product
-        if jnp.dtype(data.dtype) == jnp.float64:
-            return jax_k(data, indices, spike, trace)
-        tr = pair_gather_product(None, indices.reshape(-1), None, trace,
-                                 x_passes=3, platform=platform)
-        if tr is None:
-            return jax_k(data, indices, spike, trace)
-        gate = (spike.astype(data.dtype) if spike.dtype == jnp.bool_
-                else (spike > 0).astype(data.dtype))
-        return (data + gate[:, None]
-                * tr.reshape(indices.shape).astype(data.dtype),)
-
-    return kernel
-
-
 fcn_plasticity_row_p.def_jax_kernel(_row_plasticity_jax_kernel, asdefault=True)
-fcn_plasticity_row_p.def_pallas_kernel(_row_plasticity_pallas_kernel)
-# measured on a v5e (BENCH_PRIMS_r04.json / BENCH_NOTES r4b): 57.1 vs
-# 483.6 us/call at n=1k/K=100 (8.5x), 557.7 vs 6646.7 at n=10k/K=100
-fcn_plasticity_row_p.set_default('tpu', 'pallas')
 fcn_plasticity_row_p.def_general_batching()
 
 

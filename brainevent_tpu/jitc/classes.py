@@ -42,17 +42,12 @@ __all__ = ['make_classes', 'JITCModeView', 'JITCWalkPlan']
 class JITCWalkPlan:
     """Precomputed walk-stream setup bound to one JITC matrix.
 
-    The stationary-``q`` stream initialization (rejection-sampled in
-    lockstep over every stream) dominates repeated implicit products on
-    the TPU — measured 84% of the ``jitnmv`` call at (2000, 2000) on a
-    v5e (BENCH_NOTES, jitc walk-plan probe). It is a pure function of
-    ``(seed, clen, shape)``, so a fixed matrix computes it once here and
-    every subsequent product skips it — the same structure-binding move
-    as ``CSR.build_mxu_plan()``. The reference re-draws per call inside
-    SIMT threads where rejection divergence is cheap
-    (``brainevent/_jit_normal/float.py:729``); lockstep rejection on the
-    VPU is not, hence the plan layer (TPU extension, no reference
-    counterpart).
+    The stationary-``q`` stream initialization is rejection-sampled over
+    every stream. It is a pure function of ``(seed, clen, shape)``, so a
+    fixed matrix computes it once here and passes it to the plan
+    primitives. The reference re-draws per call inside each thread
+    (``brainevent/_jit_normal/float.py:729``); the plan layer is an
+    extension with no reference counterpart.
 
     ``plan @ v`` / ``v @ plan`` compute the same product as the bound
     matrix (same sampled matrix — validated by the backend sweep: the
@@ -76,8 +71,8 @@ class JITCWalkPlan:
         self.clen = clen
         self.setup = tuple(setup)
         # static round bound for the event-compacted scatter route
-        # (None when the connection prob is traced — the lockstep kernel
-        # then serves event products too)
+        # (None when the connection prob is traced — the full walk then
+        # serves event products too)
         self.scan_rounds = scan_rounds
         # static active-row capacity override for the event route
         # (None -> the global event_capacity default)
@@ -328,9 +323,9 @@ def make_classes(family, class_base_name: str, param_names: Tuple[str, ...],
 
             Returns a :class:`JITCWalkPlan` supporting ``plan @ v`` /
             ``v @ plan`` with the SAME sampled mv-mode matrix as this
-            object's products; the expensive stationary-``q`` stream
-            init (84% of a (2k, 2k) ``jitnmv`` call on v5e) runs once
-            here instead of per call. 2-D operands apply the mv-mode
+            object's products; the stationary-``q`` stream init runs
+            once here and is passed to the plan primitives. 2-D operands
+            apply the mv-mode
             matrix column-wise (``self @ B`` samples the mm-mode matrix
             instead — use the matrix directly for that contract).
             """

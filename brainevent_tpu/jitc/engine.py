@@ -18,18 +18,18 @@
 The reference implements the geometric-skip connectivity sampler three times
 per family (Numba scalar loops + two CUDA kernels per op, ~25k LoC across
 ``brainevent/_jit_scalar``, ``_jit_normal``, ``_jit_uniform``). This module
-is the single TPU-native engine behind all 24 JITC primitives:
+is the single engine behind all 24 JITC primitives:
 
 - Streams are keyed ``(row, chunk, lane)`` exactly as the reference
   (``light_rng_init``), with ``stride = 32`` in mv mode / ``4`` in mm mode
   and ``chunk_size = ceil(shape[1] / 4)`` — the layout *is* the sampled
   matrix, so these constants are part of the data contract
   (``brainevent/_misc.py:37-38,74``).
-- All streams advance **together** as whole uint32 arrays on the VPU: one
+- All streams advance **together** as whole uint32 arrays: one
   ``lax.while_loop`` round advances every still-active stream by one
   geometric skip. Expected rounds ≈ ``chunk_width * prob / stride`` + a
-  small tail, so the loop is short and fully vectorized — the TPU answer to
-  the reference's per-thread skip loops.
+  small tail, so the loop is short and fully vectorized — the XLA
+  counterpart of the reference's per-thread skip loops.
 
 Walk orientation: for ``corder=True`` the walk rows are *output* indices and
 walk cols are *input* indices; ``corder=False`` the reverse (scatter form).
@@ -51,7 +51,7 @@ from ..rng.light import (
 )
 
 __all__ = [
-    'walk_setup', 'walk_fold',
+    'walk_setup', 'walk_plan_setup', 'walk_fold',
     'walk_matvec', 'walk_matmat', 'walk_todense',
     'walk_count', 'walk_collect', 'walk_keys', 'walk_dt2t',
 ]
@@ -80,6 +80,23 @@ def walk_setup(seed, clen, n_rows: int, n_cols: int, stride: int,
     state = light_rng_init(seed, rows3, chunks3, lanes3)
     q, state = light_rng_initial_q(state, cl)
     return rows3, chunks3, lanes3, state, q, cl
+
+
+def walk_plan_setup(seed, clen, n_rows: int, n_cols: int, stride: int,
+                    chunk_size: int):
+    """The hoistable stream setup of a walk: ``(state2, q2, cl)`` with
+    ``state2``/``q2`` of shape ``(n_rows, n_chunks * stride)`` uint32.
+
+    The stationary initial ``q`` is drawn by rejection over all streams; it
+    depends only on ``(seed, clen, n_rows, n_cols, chunk_size)``, so a
+    matrix with fixed seed and shape can compute it once (the walk-plan
+    primitives' operands).
+    """
+    n_chunks = -(-n_cols // chunk_size)
+    _, _, _, state, q, cl = walk_setup(
+        seed, clen, n_rows, n_cols, stride, chunk_size)
+    return (state.reshape(n_rows, n_chunks * stride),
+            q.reshape(n_rows, n_chunks * stride), cl)
 
 
 def walk_fold(
@@ -362,7 +379,7 @@ def walk_dt2t(weight_fn, seed, clen, y, shape: Tuple[int, int], nse: int, *,
               out_dtype=jnp.float32):
     """Fused per-synapse ``w * y`` fill in canonical CSR flat order.
 
-    The TPU counterpart of the reference's fused dt2t fill primitive
+    The counterpart of the reference's fused dt2t fill primitive
     (``brainevent/_jit_normal/dt2t.py:121-232``): weights are regenerated
     from the hash at each structural non-zero and multiplied by the
     row-gathered (``transpose=False``) or column-gathered

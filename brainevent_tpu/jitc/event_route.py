@@ -15,28 +15,27 @@
 
 """Event-compacted implicit scatter products over a walk plan.
 
-The lockstep slot scan (:mod:`.pallas_kernels`) pays ``streams x slots``
-VPU visits regardless of event sparsity — for a binary operand with a few
-hundred active rows out of 80k that is ~99% dead work. This route is the
-JITC analog of the FCN compact-scatter path (``fcn/binary.py``): compact
-the active rows, gather THEIR plan streams, walk only those streams for a
-**static** number of rounds collecting (target, weight) candidates, and
-scatter the candidates with the MXU one-hot machinery
+The full walk visits every stream regardless of event sparsity — for a
+binary operand with a few hundred active rows out of 80k that is ~99% dead
+work. This route is the JITC analog of the FCN compact-scatter path
+(``fcn/binary.py``): compact the active rows, gather THEIR plan streams,
+walk only those streams for a **static** number of rounds collecting
+(target, weight) candidates, and scatter-add the candidates
 (:func:`brainevent_tpu.ops.scatter.event_scatter_add`).
 
 Exactness is unconditional: each compacted stream replays exactly the
 same draw sequence as :func:`brainevent_tpu.jitc.engine.walk_fold` (same
 stationary initial ``q`` — it comes from the same plan — same
 ``next/bounded`` advance), and a ``lax.cond`` fallback to the full
-lockstep product fires whenever the active-row count exceeds the static
+product fires whenever the active-row count exceeds the static
 capacity or any stream is still inside its chunk after ``scan_rounds``
 rounds. A tight capacity or round bound only ever costs a slower step,
 never accuracy (the ``event_capacity`` contract of ``fcn/binary.py``).
 
 The reference's CUDA event kernels skip inactive rows per SIMT thread
 (``brainevent/_jit_normal/binary_jitnmv.cu`` early-outs on the spike
-test); on the TPU the skip must be a *shape* change — compaction — not a
-branch, hence this formulation.
+test); under XLA's static shapes the skip must be a *shape* change —
+compaction — not a branch, hence this formulation.
 """
 
 import math
@@ -122,10 +121,7 @@ def jitc_event_matvec_plan(weight_fn_raw, npar: int, params, seed, v,
     n_chunks = L // _MV_STRIDE
 
     # active-row compaction through the library's own event encoder
-    # (events/compact_ops.py binary_1d_array_index — VERDICT r3 item 5:
-    # the route previously re-derived it with jnp.nonzero; measured at
-    # 64k on v5e the encoder and sized-nonzero are within noise, so the
-    # primitive is the principled spelling)
+    # (events/compact_ops.py binary_1d_array_index)
     from ..events.compact_ops import binary_1d_array_index_p_call
     idbuf, count = binary_1d_array_index_p_call(v)
     n_act = count[0]
@@ -155,10 +151,9 @@ def jitc_event_matvec_plan(weight_fn_raw, npar: int, params, seed, v,
     # collecting per-round TARGETS into a static buffer. Weights are NOT
     # computed here: the weight law is stateless in (seed, row, col)
     # (rng/light.py edge hash), so the evaluation defers to the row_cap
-    # survivors after compaction — measured on v5e at 80k (BENCH_NOTES
-    # round-3 cont.): the in-loop eval paid rounds x cap x L Acklam
-    # draws plus a second (rounds, cap, L) f32 buffer and a 2-operand
-    # sort, ~2.5x the deferred pipeline's cost for identical output.
+    # survivors after compaction: an in-loop evaluation would pay
+    # rounds x cap x L Acklam draws plus a second (rounds, cap, L) f32
+    # buffer and a 2-operand sort for identical output.
     def round_body(r, carry):
         st, q, tgt_buf = carry
         local_j = lanes3 + _U(_MV_STRIDE) * q
@@ -185,9 +180,8 @@ def jitc_event_matvec_plan(weight_fn_raw, npar: int, params, seed, v,
     # >= n_act are pure sentinel and a prefix slice is exact — and
     # EVERYTHING downstream (the per-row candidate sort, the deferred
     # weight evaluation, the scatter's per-slot bill) scales with the
-    # sliced row count. The static cap must keep ~3.5x burst headroom
-    # (tightening it instead measured 1.5-2.4x WORSE at 80k: burst
-    # steps fell back to the full product, BENCH_NOTES r4d); the
+    # sliced row count. The static cap keeps burst headroom (a tight cap
+    # sends burst steps to the full product); the
     # lax.switch picks the smallest prefix covering THIS step's rows,
     # so typical steps pay a quarter/half of the burst capacity.
     def tail(budget):
@@ -196,9 +190,8 @@ def jitc_event_matvec_plan(weight_fn_raw, npar: int, params, seed, v,
         if row_cap is not None and row_cap < slots:
             # per-row compaction: sort each row's candidates by target
             # (the out_len sentinel sorts last), keep the first row_cap
-            # — cheap bitonic passes on the VPU cut the scatter input
-            # ~slots/row_cap fold (the MXU one-hot scatter bills per
-            # SLOT). Single-operand sort: the row id is the (implicit)
+            # — the sort cuts the scatter input ~slots/row_cap fold.
+            # Single-operand sort: the row id is the (implicit)
             # sort dimension and weights don't exist yet.
             t2 = jax.lax.sort(t2, dimension=1)
             over = jnp.any(t2[:, row_cap] < out_len)

@@ -112,44 +112,12 @@ def make_family(spec: JITCFamilySpec) -> SimpleNamespace:
             return (dense,)
         return kernel
 
-    def _dense_pallas_kernel(*, shape, transpose, corder, matrix_mode='mv',
-                             **kw):
-        """Real Mosaic materialize: the slot scan writes dense tiles (no
-        scatter) in both lane layouts — stride-32 row-per-sublane for
-        ``'mv'``, stride-4 row-packed for ``'mm'`` — falling back to the
-        XLA walk outside the envelope (x64, VMEM)."""
-        from .pallas_kernels import (jitc_todense_pallas,
-                                     jitc_todense_pallas_mm)
-        jax_k = _dense_kernel(shape=shape, transpose=transpose,
-                              corder=corder, matrix_mode=matrix_mode, **kw)
-        todense = (jitc_todense_pallas
-                   if _normalize_matrix_mode(matrix_mode) == 'mv'
-                   else jitc_todense_pallas_mm)
-
-        def kernel(*args):
-            params = args[:npar]
-            clen, seed = args[npar], args[npar + 1]
-            out_len, in_len = walk_dims(shape, transpose)
-            out = todense(
-                spec.weight_fn, npar, params, seed[0], clen[0],
-                (out_len, in_len), corder=corder,
-                out_dtype=kw['outs'][0].dtype)
-            if out is None:
-                return jax_k(*args)
-            return (out,)
-        return kernel
-
     dense_p = XLACustomKernel(
         f'jit{t}',
         doc=f'Materialize the implicit {spec.name} matrix '
             f'(reference brainevent/_{spec.name}/float.py).',
     )
     dense_p.def_jax_kernel(_dense_kernel, asdefault=True)
-    dense_p.def_pallas_kernel(_dense_pallas_kernel)
-    # measured on a v5e (BENCH_PRIMS_r03 r3f rows): slot-scan materialize
-    # 457 vs 5904 us at (1k,1k,10%), 853 vs 16272 us at (2k,2k,10%),
-    # 3523 vs 34719 us at (5k,5k,1%) — 8-23x over the XLA walk
-    dense_p.set_default('tpu', 'pallas')
     dense_p.def_general_batching()
     dense_p.def_tags(spec.name, 'float')
 
@@ -245,28 +213,6 @@ def make_family(spec: JITCFamilySpec) -> SimpleNamespace:
             return kernel
         return gen
 
-    def _mv_pallas_kernel(event):
-        """Real Mosaic mv kernel: the lockstep slot scan
-        (``jitc/pallas_kernels.py``), falling back to the XLA walk when
-        the shape is outside the kernel envelope (x64, VMEM)."""
-        def gen(*, shape, transpose, corder, **kw):
-            from .pallas_kernels import jitc_matvec_pallas
-            jax_k = _mv_kernel(event)(shape=shape, transpose=transpose,
-                                      corder=corder, **kw)
-
-            def kernel(*args):
-                params, clen, v, seed = split_args(args)
-                out_len, _ = walk_dims(shape, transpose)
-                out = jitc_matvec_pallas(
-                    spec.weight_fn, npar, params, seed[0], clen[0], v,
-                    out_len, corder=corder, logical_cols=shape[1],
-                    event=event, out_dtype=kw['outs'][0].dtype)
-                if out is None:
-                    return jax_k(*args)
-                return (out,)
-            return kernel
-        return gen
-
     def _mm_kernel(event):
         def gen(*, shape, transpose, corder, matrix_mode='mm', **kw):
             stride = _MV_STRIDE if _normalize_matrix_mode(
@@ -284,91 +230,38 @@ def make_family(spec: JITCFamilySpec) -> SimpleNamespace:
             return kernel
         return gen
 
-    def _mm_pallas_kernel(event):
-        """Batched Mosaic slot scan in both lane layouts: stride-32
-        row-per-sublane for ``matrix_mode='mv'`` (the classes' ``@``
-        route with a 1-D operand), stride-4 row-packed for ``'mm'``
-        (the default mat-mat mode); x64 and VMEM overflows fall back to
-        the XLA walk."""
-        def gen(*, shape, transpose, corder, matrix_mode='mm', **kw):
-            from .pallas_kernels import (jitc_matmat_pallas,
-                                         jitc_matmat_pallas_mm)
-            jax_k = _mm_kernel(event)(shape=shape, transpose=transpose,
-                                      corder=corder,
-                                      matrix_mode=matrix_mode, **kw)
-            matmat = (jitc_matmat_pallas
-                      if _normalize_matrix_mode(matrix_mode) == 'mv'
-                      else jitc_matmat_pallas_mm)
-
-            def kernel(*args):
-                params, clen, B, seed = split_args(args)
-                out_len, _ = walk_dims(shape, transpose)
-                out = matmat(
-                    spec.weight_fn, npar, params, seed[0], clen[0], B,
-                    out_len, corder=corder, logical_cols=shape[1],
-                    event=event, out_dtype=kw['outs'][0].dtype)
-                if out is None:
-                    return jax_k(*args)
-                return (out,)
-            return kernel
-        return gen
-
     mv_p = XLACustomKernel(
         f'jit{t}mv',
         doc=f'Implicit {spec.name} mat-vec (reference brainevent/_{spec.name}/float.py).')
     mv_p.def_jax_kernel(_mv_kernel(event=False), asdefault=True)
-    mv_p.def_pallas_kernel(_mv_pallas_kernel(event=False))
-    # measured on a v5e (BENCH_NOTES.md round 3): slot scan 410 us vs
-    # 3315 us at (1k,1k,10%), 6.1 ms vs 62 ms at (10k,10k,1%)
-    mv_p.set_default('tpu', 'pallas')
     mv_p.def_tags(spec.name, 'float', 'mv')
 
     mm_p = XLACustomKernel(
         f'jit{t}mm',
         doc=f'Implicit {spec.name} mat-mat (reference brainevent/_{spec.name}/float.py).')
     mm_p.def_jax_kernel(_mm_kernel(event=False), asdefault=True)
-    mm_p.def_pallas_kernel(_mm_pallas_kernel(event=False))
-    # measured on a v5e (BENCH_NOTES.md r3g/r3f): stride-4 mm-layout slot
-    # scan wins every grid row — e.g. jitsmm (2k,2k,p=0.02) 290 vs 787 us,
-    # (200,300,p=0.1) 39-54 vs 87-99 us; nb=1 72x. Default flipped in r4
-    # after the defaults-vs-measurements audit (tests/test_default_audit.py).
-    mm_p.set_default('tpu', 'pallas')
     mm_p.def_tags(spec.name, 'float', 'mm')
 
     bmv_p = XLACustomKernel(
         f'binary_jit{t}mv',
         doc=f'Event implicit {spec.name} mat-vec (reference brainevent/_{spec.name}/binary.py).')
     bmv_p.def_jax_kernel(_mv_kernel(event=True), asdefault=True)
-    bmv_p.def_pallas_kernel(_mv_pallas_kernel(event=True))
-    bmv_p.set_default('tpu', 'pallas')
     bmv_p.def_tags(spec.name, 'binary', 'mv')
 
     bmm_p = XLACustomKernel(
         f'binary_jit{t}mm',
         doc=f'Event implicit {spec.name} mat-mat (reference brainevent/_{spec.name}/binary.py).')
     bmm_p.def_jax_kernel(_mm_kernel(event=True), asdefault=True)
-    bmm_p.def_pallas_kernel(_mm_pallas_kernel(event=True))
-    # same audit flip as mm_p: binary_jit*mm pallas wins 1.5-2.8x on every
-    # BENCH_PRIMS_r04.json row (e.g. binary_jitsmm (2k,2k) 286 vs 790 us)
-    bmm_p.set_default('tpu', 'pallas')
     bmm_p.def_tags(spec.name, 'binary', 'mm')
 
     # ------------------------------------------------------------------
-    # walk-plan primitives (TPU extension): the same mv-mode products
-    # with the stream setup hoisted out of the call.
-    #
-    # walk_setup's stationary-q rejection sampler runs lockstep over ALL
-    # streams and costs 836 us of the 991 us jitnmv call at (2000, 2000)
-    # on a v5e — 84% (BENCH_NOTES: jitc walk-plan probe). The setup is a
-    # pure function of (seed, clen, walk dims), so a matrix with fixed
-    # seed/shape computes it ONCE (build_plan_setup / the classes'
-    # build_walk_plan) and passes it in as operands. Same sampled matrix
-    # by construction: the jax_raw backend IGNORES the setup operands and
-    # recomputes internally, so the backend sweep proves stream equality.
-    # The reference re-draws per call inside SIMT threads where rejection
-    # divergence is cheap (brainevent/_jit_normal/float.py:729); lockstep
-    # rejection is a real cost on the VPU, so the plan binds it at the
-    # data-structure layer — the CSR.build_mxu_plan() move.
+    # walk-plan primitives: the same mv-mode products with the stream
+    # setup (the stationary-q rejection sampler over all streams) hoisted
+    # out of the call. The setup is a pure function of (seed, clen, walk
+    # dims), so a matrix with fixed seed/shape computes it ONCE
+    # (build_plan_setup / the classes' build_walk_plan) and passes it in
+    # as operands. Same sampled matrix by construction: the jax_raw
+    # backend recomputes the setup internally and ignores the operands.
     #
     # Plans are mode-locked to the stride-32 mv walk: the plan mm product
     # applies the SAME matrix as mv to every operand column (unlike the
@@ -394,70 +287,6 @@ def make_family(spec: JITCFamilySpec) -> SimpleNamespace:
             return (out,)
         return kernel
 
-    def _mv_plan_pallas_kernel(*, shape, transpose, corder, event=False,
-                               scan_rounds=None, event_cap=None,
-                               row_cap=None, **kw):
-        from .pallas_kernels import jitc_matvec_pallas
-        jax_k = _mv_plan_kernel(shape=shape, transpose=transpose,
-                                corder=corder, event=event, **kw)
-
-        def kernel(*args):
-            params, clen, v, seed, setup = split_plan_args(args)
-            state2, q2, clarr = setup
-            out_len, in_len = walk_dims(shape, transpose)
-            out_dtype = kw['outs'][0].dtype
-
-            def lockstep():
-                out = jitc_matvec_pallas(
-                    spec.weight_fn, npar, params, seed[0], clen[0], v,
-                    out_len, corder=corder, logical_cols=shape[1],
-                    event=event, out_dtype=out_dtype,
-                    setup=(state2, q2, clarr[0]))
-                return out if out is not None else jax_k(*args)[0]
-
-            # event-compacted scatter route: only the spiking rows' plan
-            # streams walk (corder=False is the scatter direction — the
-            # operand indexes the walk-row axis)
-            if (event and not corder and scan_rounds
-                    and jnp.dtype(out_dtype) != jnp.float64
-                    and state2.shape[0] == in_len):
-                from ..config import get_jitc_event_fallback
-                from ..fcn.binary import event_capacity
-                from .event_route import jitc_event_matvec_plan
-                chunk = _normalize_chunk_size(shape[1], None)
-                cap = (int(event_cap) if event_cap
-                       else event_capacity(in_len))
-                cap = min(cap, in_len)
-                rc = None if row_cap is None else int(row_cap)
-                fb = (lockstep if get_jitc_event_fallback() == 'lockstep'
-                      else (lambda: jax_k(*args)[0]))
-
-                def route(cap_k, rounds_k, rc_k, fallback_k):
-                    return lambda: jitc_event_matvec_plan(
-                        spec.weight_fn, npar, params, seed[0], v,
-                        out_len, n_rows=in_len, chunk_size=chunk,
-                        setup=(state2, q2, clarr[0]),
-                        scan_rounds=rounds_k, cap=cap_k,
-                        fallback=fallback_k, out_dtype=out_dtype,
-                        row_cap=rc_k)
-
-                # two-level escalation: bursts (e.g. an initial
-                # synchronization transient) hit a 4x-capacity pass of
-                # the same XLA route, and only beyond that the final
-                # fallback — measured at 80k: the final route firing
-                # ~0.6% of steps costs +1.9 ms/step amortized via the
-                # engine vs +25 min of Mosaic compile via the lockstep
-                # kernel; the escalation pass costs neither.
-                cap2 = min(4 * cap, in_len)
-                r1 = int(scan_rounds)
-                r2 = min(2 * r1 + 4, 64)
-                rc2 = None if rc is None else 2 * rc
-                if cap2 > cap or r2 > r1:
-                    fb = route(cap2, r2, rc2, fb)
-                return (route(cap, r1, rc, fb)(),)
-            return (lockstep(),)
-        return kernel
-
     def _mm_plan_kernel(*, shape, transpose, corder, event=False, **kw):
         def kernel(*args):
             params, clen, B, seed, _setup = split_plan_args(args)
@@ -470,45 +299,20 @@ def make_family(spec: JITCFamilySpec) -> SimpleNamespace:
             return (out,)
         return kernel
 
-    def _mm_plan_pallas_kernel(*, shape, transpose, corder, event=False,
-                               **kw):
-        from .pallas_kernels import jitc_matmat_pallas
-        jax_k = _mm_plan_kernel(shape=shape, transpose=transpose,
-                                corder=corder, event=event, **kw)
-
-        def kernel(*args):
-            params, clen, B, seed, setup = split_plan_args(args)
-            state2, q2, clarr = setup
-            out_len, _ = walk_dims(shape, transpose)
-            out = jitc_matmat_pallas(
-                spec.weight_fn, npar, params, seed[0], clen[0], B,
-                out_len, corder=corder, logical_cols=shape[1],
-                event=event, out_dtype=kw['outs'][0].dtype,
-                setup=(state2, q2, clarr[0]))
-            if out is None:
-                return jax_k(*args)
-            return (out,)
-        return kernel
-
     pmv_p = XLACustomKernel(
         f'jit{t}mv_plan',
         doc=f'Implicit {spec.name} mat-vec over a precomputed walk plan '
-            f'(TPU extension; same sampled matrix as jit{t}mv — the '
-            f'stationary-q setup, 84% of the mv call at (2k, 2k) on v5e, '
-            f'is hoisted to build time).')
+            f'(same sampled matrix as jit{t}mv, with the stationary-q '
+            f'stream setup passed in as operands).')
     pmv_p.def_jax_kernel(_mv_plan_kernel, asdefault=True)
-    pmv_p.def_pallas_kernel(_mv_plan_pallas_kernel)
-    pmv_p.set_default('tpu', 'pallas')
     pmv_p.def_tags(spec.name, 'float', 'mv', 'plan')
 
     pmm_p = XLACustomKernel(
         f'jit{t}mm_plan',
         doc=f'Implicit {spec.name} mat-mat over a precomputed walk plan '
-            f'(TPU extension; mode-locked to the stride-32 mv walk: every '
+            f'(mode-locked to the stride-32 mv walk: every '
             f'operand column sees the SAME matrix as jit{t}mv).')
     pmm_p.def_jax_kernel(_mm_plan_kernel, asdefault=True)
-    pmm_p.def_pallas_kernel(_mm_plan_pallas_kernel)
-    pmm_p.set_default('tpu', 'pallas')
     pmm_p.def_tags(spec.name, 'float', 'mm', 'plan')
 
     def _plan_p_call(prim, is_mm):
@@ -622,15 +426,14 @@ def make_family(spec: JITCFamilySpec) -> SimpleNamespace:
     def build_plan_setup(prob, seed, shape, transpose=False, corder=True):
         """Precompute ``(clen, state2, q2, cl)`` for the plan primitives'
         walk geometry (shared by the product and its AD flips)."""
-        from .pallas_kernels import walk_plan_setup
         out_len, in_len = walk_dims(shape, transpose)
         n_rows, n_cols = ((out_len, in_len) if corder
                           else (in_len, out_len))
         chunk = _normalize_chunk_size(shape[1], None)
         clen = jnp.atleast_1d(jnp.asarray(_prep_clen(prob)))
         seed = _initialize_seed(seed)
-        state2, q2, cl = walk_plan_setup(seed[0], clen[0], n_rows, n_cols,
-                                         chunk)
+        state2, q2, cl = engine.walk_plan_setup(
+            seed[0], clen[0], n_rows, n_cols, _MV_STRIDE, chunk)
         return clen, state2, q2, jnp.atleast_1d(cl)
 
     def _wrap_plan(call, is_mm):
@@ -837,8 +640,6 @@ def make_family(spec: JITCFamilySpec) -> SimpleNamespace:
         doc=f'Per-row hit counts of the implicit {spec.name} matrix '
             f'(reference brainevent/_{spec.name}/csr.py).')
     count_p.def_jax_kernel(_count_kernel, asdefault=True)
-    count_p.def_pallas_kernel(lambda **kw: _count_kernel(**kw),
-                              alias_of='jax_raw', note='the vectorized whole-array walk (jitc/engine.py) is the TPU formulation; serial geometric skips are VPU-hostile (BENCH_NOTES.md: JITC walk)')
     count_p.def_general_batching()
     count_p.def_tags(spec.name, 'csr')
 
@@ -873,8 +674,6 @@ def make_family(spec: JITCFamilySpec) -> SimpleNamespace:
         doc=f'Materialize the canonical column-sorted CSR of the implicit '
             f'{spec.name} matrix (reference brainevent/_{spec.name}/csr.py).')
     fill_p.def_jax_kernel(_fill_kernel, asdefault=True)
-    fill_p.def_pallas_kernel(lambda **kw: _fill_kernel(**kw),
-                             alias_of='jax_raw', note='the vectorized whole-array walk (jitc/engine.py) is the TPU formulation; serial geometric skips are VPU-hostile (BENCH_NOTES.md: JITC walk)')
     fill_p.def_general_batching()
     fill_p.def_tags(spec.name, 'csr')
 
@@ -1000,12 +799,6 @@ def make_family(spec: JITCFamilySpec) -> SimpleNamespace:
             f'(mv) matrix in canonical CSR flat order — weights regenerated '
             f'in-kernel (reference brainevent/_{spec.name}/dt2t.py:121-291).')
     dt2t_p.def_jax_kernel(_dt2t_kernel, asdefault=True)
-    dt2t_p.def_pallas_kernel(
-        lambda **kw: _dt2t_kernel(**kw),
-        alias_of='jax_raw',
-        note='the vectorized whole-array walk (jitc/engine.py) is the TPU '
-             'formulation; serial geometric skips are VPU-hostile '
-             '(BENCH_NOTES.md: JITC walk)')
     dt2t_p.def_general_batching()
     dt2t_p.def_tags(spec.name, 'dt2t')
 

@@ -10,11 +10,10 @@ from .neurons import (
 )
 from .networks import EINet, EINetState
 from .jitc_net import JITCNet, JITCNetState
-from .pallas_sim import einet_pallas_sim
 
 __all__ = [
     'LIFRefParams', 'LIFRefState', 'lifref_init', 'lifref_step',
-    'surrogate_spike', 'EINet', 'EINetState', 'einet_pallas_sim',
+    'surrogate_spike', 'EINet', 'EINetState',
     'JITCNet', 'JITCNetState',
     'SurrogateSNN', 'SNNParams', 'snn_loss', 'train_step',
 ]

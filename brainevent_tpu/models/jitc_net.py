@@ -23,11 +23,10 @@ structure are regenerated from the seed inside every product (reference
 ``brainevent/_jit_normal/main.py``; the examples' EventJitFixedProb
 usage). Weight memory is O(1) regardless of network size.
 
-TPU design: each projection holds a :class:`JITCWalkPlan` built once at
-construction (the stationary-q stream setup — measured 69-84% of a cold
-product on v5e — never recomputes), and spike propagation runs the
-event-compacted scatter route (``jitc/event_route.py``): only the
-spiking rows' plan streams walk, candidates scatter on the MXU, and a
+Design: each projection holds a :class:`JITCWalkPlan` built once at
+construction (the stationary-q stream setup), and spike propagation runs
+the event-compacted scatter route (``jitc/event_route.py``): only the
+spiking rows' plan streams walk, candidates are scatter-added, and a
 ``lax.cond`` fallback keeps every step exact under bursts.
 """
 

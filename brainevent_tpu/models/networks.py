@@ -22,10 +22,11 @@ neurons with event-driven fixed-number random connectivity (~80 synapses per
 presynaptic neuron), exponential synapses, current-based (CUBA) or
 conductance-based (COBA) coupling, stepped at dt = 0.1 ms.
 
-TPU design: the whole state is one pytree; a step is a pure function; the
-100k-step simulation is a single ``lax.fori_loop`` compiled once. Spike
-propagation uses the compact event scatter of
-:func:`brainevent_tpu.binary_fcnmv` (transpose direction).
+Design: the whole state is one pytree; a step is a pure function; the
+100k-step simulation is a single ``lax.fori_loop`` compiled once, so the
+loop stays on the device. Spike propagation compacts this step's spikes
+into a static-capacity buffer and scatter-adds their rows of the
+connectivity table (:mod:`brainevent_tpu.ops.scatter`).
 """
 
 import dataclasses
@@ -84,7 +85,7 @@ class EINet:
         n_conn = min(self.n_conn, self.num)
         # fixed out-degree random connectivity (EventFixedProb equivalent);
         # one combined table so both projections share a single compaction
-        # and one MXU scatter contraction per step
+        # per step
         idx_e = jax.random.randint(k_e, (self.n_exc, n_conn), 0, self.num,
                                    dtype=jnp.int32)
         idx_i = jax.random.randint(k_i, (self.n_inh, n_conn), 0, self.num,
@@ -109,7 +110,7 @@ class EINet:
     # -- dynamics ------------------------------------------------------------
 
     def _propagate(self, spk: jax.Array):
-        """Fused event propagation: one spike compaction + one 2-channel MXU
+        """Fused event propagation: one spike compaction + one 2-channel
         scatter covering both projections; exact overflow fallback."""
         num = self.num
         cap = event_capacity(num)
@@ -120,9 +121,9 @@ class EINet:
         tgt = self.conn_all[safe]                         # (cap, n_conn)
         tgt = jnp.where(valid[:, None], tgt, num)         # drop invalid rows
         is_exc = safe < self.n_exc
-        # binary hit-count factors scaled by the homogeneous weight after the
-        # contraction: exact (integer counts in f32) and bitwise-identical to
-        # the mega-kernel's formulation (models/pallas_sim.py)
+        # binary hit counts scaled by the homogeneous weight after the
+        # scatter: integer counts in f32 are exact in any summation order,
+        # so every device and every shard layout gives the same spikes
         ve = jnp.where(valid & is_exc, 1.0, 0.0).astype(jnp.float32)
         vi = jnp.where(valid & ~is_exc, 1.0, 0.0).astype(jnp.float32)
         n_conn = tgt.shape[1]

@@ -19,7 +19,7 @@ The reference delegates neuron dynamics to the brainpy/brainstate stack
 (``/root/reference/examples/CUBA_2005.py``); brainevent-tpu ships a
 self-contained functional implementation so the acceptance workloads (CUBA/
 COBA EI networks) run stand-alone. All state lives in explicit pytrees;
-every update is a pure function suitable for ``lax.fori_loop`` on TPU.
+every update is a pure function suitable for ``lax.fori_loop``.
 
 Units convention (brainunit optional): voltages in mV, times in ms,
 conductances in mS, currents in mA.

@@ -14,7 +14,7 @@
 # ==============================================================================
 
 """Operator infrastructure: primitive dispatch, AD utilities, benchmarking,
-TPU scatter strategies, and the native C++ FFI pipeline."""
+event scatter-add, and the native C++ FFI pipeline."""
 
 from .core import XLACustomKernel, KernelEntry
 from .util import (
@@ -31,12 +31,12 @@ from .benchmark import (
     BenchmarkRecord,
     BenchmarkResult,
     benchmark_function,
+    gpu_device_info,
 )
 from .scatter import event_scatter_add, event_scatter_add_multi, masked_gather
 from .numba_bridge import (numba_kernel, fnptr_kernel, numba_cfunc_address,
     ctypes_cfunc_address,
                            numba_cuda_kernel, numba_cuda_callable)
-from . import pallas_utils
 
 __all__ = [
     'XLACustomKernel', 'KernelEntry',
@@ -44,9 +44,9 @@ __all__ = [
     'dtype_suffix', 'spike_suffix',
     'jaxtype_to_warptype', 'jaxinfo_to_warpinfo',
     'BenchmarkConfig', 'BenchmarkRecord', 'BenchmarkResult', 'benchmark_function',
+    'gpu_device_info',
     'event_scatter_add', 'event_scatter_add_multi', 'masked_gather',
     'numba_kernel', 'fnptr_kernel', 'numba_cfunc_address',
     'ctypes_cfunc_address',
     'numba_cuda_kernel', 'numba_cuda_callable',
-    'pallas_utils',
 ]

@@ -19,12 +19,11 @@ One :class:`XLACustomKernel` instance owns one JAX primitive with
 ``multiple_results=True`` and a per-``(platform, backend)`` table of *kernel
 generators*. Backend resolution happens at MLIR lowering time, so a single
 jitted function picks the right kernel per compilation platform. This mirrors
-the reference design (``brainevent/_op/main.py:96-1439``) but is TPU-first:
-the default backends are ``pallas`` (TPU; interpreter mode on CPU),
-``jax_raw`` (pure JAX, all platforms), and ``cpp_ffi`` (native C++ XLA-FFI
-custom calls on CPU). CUDA-era registration helpers (``def_cuda_raw_kernel``
-etc.) are kept for API parity and raise actionable errors when selected on
-hardware without CUDA.
+the reference design (``brainevent/_op/main.py:96-1439``): the backends are
+``jax_raw`` (pure JAX compiled by XLA, every platform, the default), and
+``cpp_ffi`` (native C++ XLA-FFI custom calls on CPU). The registration
+helpers for GPU kernel routes (``def_cuda_raw_kernel`` etc.) are kept for
+API parity with the reference.
 
 A kernel generator is called with the primitive's static parameters
 (including ``outs``, the tuple of output ``ShapeDtypeStruct``) and returns a
@@ -51,13 +50,11 @@ __all__ = ['KernelEntry', 'XLACustomKernel']
 # MLIR lowering platform keys -> brainevent platform names.
 _LOWERING_PLATFORMS = {
     'cpu': 'cpu',
-    'tpu': 'tpu',
     'cuda': 'gpu',
     'rocm': 'gpu',
 }
 
 _AMBIGUOUS_WARNED = set()
-_ALIAS_WARNED = set()
 
 
 @dataclasses.dataclass
@@ -70,24 +67,13 @@ class KernelEntry:
         Kernel generator: called with the primitive's static parameters,
         returns a traceable callable over the array inputs.
     backend : str
-        Backend name (``'pallas'``, ``'jax_raw'``, ``'cpp_ffi'``, ...).
+        Backend name (``'jax_raw'``, ``'cpp_ffi'``, ...).
     platform : str
-        Platform this entry serves (``'cpu'``, ``'gpu'``, ``'tpu'``).
-    alias_of : str, optional
-        When set, this backend runs the same kernel as *alias_of* — the
-        registration exists for API compatibility and the name is honest
-        about it (`available_backends` flags it; selecting it explicitly
-        warns once). Aliases must cite a measurement or design rationale
-        in *note*.
-    note : str, optional
-        One-line rationale for an alias (e.g. the BENCH_NOTES.md row that
-        shows the XLA formulation winning for this op class).
+        Platform this entry serves (``'cpu'`` or ``'gpu'``).
     """
     generator: Callable
     backend: str
     platform: str
-    alias_of: Optional[str] = None
-    note: Optional[str] = None
 
 
 class XLACustomKernel:
@@ -194,21 +180,6 @@ class XLACustomKernel:
                     f"backends: {sorted(table)}. Pick one of those via the "
                     f"backend= argument, or register the missing kernel."
                 )
-            entry = table[requested]
-            if entry.alias_of is not None:
-                key = (self.name, platform, requested)
-                if key not in _ALIAS_WARNED:
-                    _ALIAS_WARNED.add(key)
-                    note = entry.note or (
-                        'the shared formulation is the measured-best TPU '
-                        'kernel for this op class')
-                    warnings.warn(
-                        f"backend={requested!r} for primitive {self.name!r} "
-                        f"on {platform!r} is an alias of {entry.alias_of!r}: "
-                        f"{note} (see BENCH_NOTES.md).",
-                        UserWarning,
-                        stacklevel=2,
-                    )
             return requested
         # 2. global config
         global_backend = config.get_backend(platform)
@@ -240,8 +211,8 @@ class XLACustomKernel:
         return (
             f"No kernel is registered for primitive {self.name!r} on "
             f"platform {platform!r}. Kernels exist for: {others or 'no platform'}. "
-            f"On TPU, register a pallas kernel (def_pallas_kernel) or a pure-JAX "
-            f"fallback (def_jax_kernel)."
+            f"Register a pure-JAX kernel (def_jax_kernel), which serves every "
+            f"platform."
         )
 
     def _lowering(self, platform: str, ctx, *args, **params):
@@ -269,55 +240,21 @@ class XLACustomKernel:
         platform: Union[str, Sequence[str]],
         generator: Callable,
         asdefault: bool = False,
-        alias_of: Optional[str] = None,
-        note: Optional[str] = None,
     ) -> None:
-        """Register *generator* as the *backend* kernel on *platform*(s).
-
-        ``alias_of``/``note`` mark the registration as running another
-        backend's kernel (see :class:`KernelEntry`) — selecting it
-        explicitly then warns once with *note*.
-        """
+        """Register *generator* as the *backend* kernel on *platform*(s)."""
         platforms = (platform,) if isinstance(platform, str) else tuple(platform)
         for p in platforms:
             if p == 'cuda':
                 p = 'gpu'
             self._kernels.setdefault(p, {})[backend] = KernelEntry(
-                generator=generator, backend=backend, platform=p,
-                alias_of=alias_of, note=note,
-            )
+                generator=generator, backend=backend, platform=p)
             if asdefault:
                 self._defaults[p] = backend
-
-    def def_pallas_kernel(
-        self,
-        generator: Callable,
-        platform: Union[str, Sequence[str]] = ('tpu', 'cpu'),
-        asdefault: bool = False,
-        alias_of: Optional[str] = None,
-        note: Optional[str] = None,
-    ) -> None:
-        """Register a Pallas kernel generator.
-
-        By default it is registered for both ``tpu`` (compiled via Mosaic)
-        and ``cpu`` (Pallas interpreter mode), so the full TPU kernel suite
-        runs on CPU-only CI. The generator should consult
-        ``ops.pallas_utils.interpret_mode(platform)`` when building the
-        ``pallas_call``.
-
-        When the XLA formulation *is* the best TPU kernel for the op (the
-        MXU/scatter engines in ``ops/scatter.py``, the vectorized JITC
-        walk), register it here with ``alias_of='jax_raw'`` and a ``note``
-        citing the measurement — ``backend='pallas'`` never silently runs
-        XLA.
-        """
-        self.def_kernel('pallas', platform, generator, asdefault=asdefault,
-                        alias_of=alias_of, note=note)
 
     def def_jax_kernel(
         self,
         generator: Callable,
-        platform: Union[str, Sequence[str]] = ('cpu', 'gpu', 'tpu'),
+        platform: Union[str, Sequence[str]] = ('cpu', 'gpu'),
         asdefault: bool = False,
     ) -> None:
         """Register a pure-JAX (XLA-compiled) kernel generator — the
@@ -370,27 +307,6 @@ class XLACustomKernel:
         if platform == 'cuda':
             platform = 'gpu'
         return list(self._kernels.get(platform, {}))
-
-    def backend_info(self, platform: str) -> List[Dict[str, Optional[str]]]:
-        """Return registration metadata for *platform*: one dict per backend
-        with ``backend``, ``alias_of`` and ``note`` keys. Aliased entries run
-        another backend's kernel — the honest registry view used by the CLI
-        and the benchmark harness (which skips exact duplicates)."""
-        if platform == 'cuda':
-            platform = 'gpu'
-        return [
-            {'backend': e.backend, 'alias_of': e.alias_of, 'note': e.note}
-            for e in self._kernels.get(platform, {}).values()
-        ]
-
-    def real_backends(self, platform: str) -> List[str]:
-        """Backend names for *platform* excluding pure aliases — the set a
-        conformance sweep should parametrize over (aliases would run the
-        identical kernel twice and prove nothing)."""
-        if platform == 'cuda':
-            platform = 'gpu'
-        return [b for b, e in self._kernels.get(platform, {}).items()
-                if e.alias_of is None]
 
     # ------------------------------------------------------------------
     # Transform rules
@@ -449,8 +365,8 @@ class XLACustomKernel:
 
         Returns a :class:`~brainevent_tpu.BenchmarkResult`.
         """
+        import jax
         from .benchmark import benchmark_function, BenchmarkResult
-        from .._compat import default_platform
 
         if self._benchmark_data_fn is None:
             raise BenchmarkDataFnNotProvidedError(
@@ -461,13 +377,13 @@ class XLACustomKernel:
             raise BenchmarkDataFnNotProvidedError(
                 f'Primitive {self.name!r} has no call fn; register it with def_call.'
             )
-        platform = platform or default_platform()
+        platform = platform or jax.default_backend()
         records = []
         configs = self._benchmark_data_fn(platform=platform)
         if max_configs > 0:
             configs = configs[:max_configs]
         for cfg in configs:
-            for backend in self.real_backends(platform):
+            for backend in self.available_backends(platform):
                 result = benchmark_function(
                     functools.partial(self._call_fn, backend=backend, **cfg.kwargs),
                     *cfg.args,

@@ -1,8 +1,8 @@
 # Copyright 2026 The brainevent-tpu Authors.
 # Licensed under the Apache License, Version 2.0.
 
-"""Native C++ XLA-FFI pipeline (the reference's "kernix" re-designed for a
-TPU/CPU deployment; reference ``brainevent/_op/kernix_*.py``)."""
+"""Native C++ XLA-FFI pipeline for CPU kernels (the reference's "kernix";
+reference ``brainevent/_op/kernix_*.py``)."""
 
 from .pipeline import (
     load_cpp_inline, load_cpp_file,

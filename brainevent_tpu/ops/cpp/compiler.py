@@ -15,9 +15,9 @@
 
 """Compiler backends (reference ``brainevent/_op/kernix_compiler.py``).
 
-``CPPBackend`` is the live TPU-era backend (g++/clang++ -> .so);
+``CPPBackend`` is the live backend (g++/clang++ -> .so);
 ``CUDABackend``/``HIPBackend`` are API-parity stubs that raise with guidance
-(TPU custom kernels are Pallas, not runtime-compiled device code).
+(runtime CUDA compilation is not built yet).
 """
 
 import abc
@@ -74,10 +74,9 @@ class CUDABackend(CompilerBackend):
 
     def compile_source(self, src_path, out_path, extra_cflags=None):
         raise CUDANotInstalledError(
-            'Runtime CUDA compilation is not available on this machine. '
-            'On TPU, write device kernels with Pallas '
-            '(XLACustomKernel.def_pallas_kernel); for native CPU kernels use '
-            'load_cpp_inline/load_cpp_file.'
+            'Runtime CUDA compilation is not built yet. Device code runs '
+            'through XLA (XLACustomKernel.def_jax_kernel); for native CPU '
+            'kernels use load_cpp_inline/load_cpp_file.'
         )
 
 
@@ -86,6 +85,6 @@ class HIPBackend(CompilerBackend):
 
     def compile_source(self, src_path, out_path, extra_cflags=None):
         raise CUDANotInstalledError(
-            'HIP/ROCm compilation is not available on this machine; see '
-            'CUDABackend for the TPU-era guidance.'
+            'HIP/ROCm compilation is not available; see CUDABackend for '
+            'the supported routes.'
         )

@@ -19,8 +19,8 @@ compile -> cache -> load -> register.
 
 The live path is C++ on CPU (``load_cpp_inline``/``load_cpp_file``); the
 ``load_cuda_*`` entry points are kept for API parity and raise
-:class:`CUDANotInstalledError` with TPU-era guidance (device kernels are
-Pallas — no runtime device compilation exists or is needed on TPU).
+:class:`CUDANotInstalledError` until runtime CUDA compilation is built
+(device code runs through XLA).
 """
 
 from pathlib import Path
@@ -92,9 +92,8 @@ def load_cpp_file(path, name: Optional[str] = None,
 
 
 _CUDA_MSG = (
-    'Runtime CUDA compilation ({fn}) is unavailable: this is a TPU/CPU '
-    'deployment. Device kernels are written with Pallas '
-    '(XLACustomKernel.def_pallas_kernel); native CPU kernels use '
+    'Runtime CUDA compilation ({fn}) is not built yet. Device code runs '
+    'through XLA (XLACustomKernel.def_jax_kernel); native CPU kernels use '
     'load_cpp_inline / load_cpp_file.'
 )
 

@@ -16,7 +16,7 @@
 """Native toolchain discovery (reference ``brainevent/_op/kernix_toolchain.py``).
 
 Finds a host C++ compiler and the XLA FFI headers shipped with jaxlib; no
-CUDA machinery — TPU kernels are Pallas, the native path is CPU-only.
+CUDA machinery — the native path is CPU-only.
 Respects the ``CXX`` environment variable.
 """
 

@@ -23,7 +23,7 @@ Two routes onto the CPU:
   ``int64`` attribute and calls it with ``(void** inputs, void** outputs)``
   raw buffer pointers. No host round-trip through Python, real buffer
   donation via ``input_output_aliases``, and no callback lock — this is
-  the TPU-era counterpart of the reference's ctypes mirror of the XLA
+  the counterpart of the reference's ctypes mirror of the XLA
   custom-call ABI (``numba_ffi.py``). Numba users obtain the address from
   ``numba.cfunc`` (:func:`numba_cfunc_address` builds the wrapper);
   native users take any ``extern "C"`` symbol with the same ABI.
@@ -366,9 +366,8 @@ def numba_kernel(kernel: Callable, outs, *,
 
 
 _CUDA_MSG = (
-    '{fn} requires CUDA + numba.cuda, which are not available on this '
-    'TPU/CPU deployment. Write device kernels with Pallas '
-    '(XLACustomKernel.def_pallas_kernel).'
+    '{fn} requires numba.cuda, which this package does not use. Device '
+    'code runs through XLA (XLACustomKernel.def_jax_kernel).'
 )
 
 

@@ -13,24 +13,16 @@
 # limitations under the License.
 # ==============================================================================
 
-"""Event scatter/gather strategies for TPU.
+"""Event scatter-add and masked gather.
 
-TPUs have no global atomics, so the reference's CUDA transpose-scatter
-machinery (atomicAdd + persistent task-queue hybrid kernels,
-``brainevent/_csr/binary_csrmv_hybrid.cu``) is replaced with two TPU-native
-strategies, selected by output size:
+Every event scatter is ``zeros(n).at[idx].add(v, mode='drop')``: XLA lowers
+it to a native atomic scatter on the GPU, the counterpart of the reference's
+per-spike ``atomicAdd`` kernels (``brainevent/_csr/binary_csrmv_hybrid.cu``).
+Out-of-range targets are dropped, which is how masked events are expressed.
 
-1. **MXU one-hot matmul** (small/medium outputs): decompose each target index
-   ``p`` into ``(block, lane) = divmod(p, 128)`` and compute the scatter-add
-   as a single ``(B, E) @ (E, 128)`` matmul on the systolic array. The MXU is
-   so much faster than serialized scatter that burning ``n_out x n_events``
-   MACs wins decisively for ``n_out`` up to tens of thousands.
-
-2. **XLA scatter-add** (large outputs): ``zeros(n).at[idx].add(v)`` with
-   ``mode='drop'`` masking.
-
-Both are pure-JAX, fully differentiable, and vmap/jit friendly. They are the
-workhorses behind the ``jax_raw`` backends of every event-driven primitive.
+Both helpers are pure JAX, differentiable, and vmap/jit friendly. They are
+the workhorses behind the ``jax_raw`` backends of the event primitives and
+the EI network's propagation.
 """
 
 from typing import Optional
@@ -38,215 +30,7 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
-from .. import config
-
-__all__ = ['event_scatter_add', 'event_scatter_add_multi',
-           'segment_sum_sorted', 'masked_gather', 'use_mxu_scatter',
-           'bf16_split']
-
-# Events per one-hot chunk: bounds the intermediate factors to a few MB of
-# VMEM-friendly working set regardless of the total event count.
-_MXU_CHUNK_EVENTS = 8192
-
-
-def bf16_split(v, passes: int):
-    """Split f32 into `passes` bf16 terms (3 reconstructs f32 exactly).
-
-    The split is built by MASKING the low 16 mantissa bits, not by a
-    f32→bf16→f32 round-trip: under ``--xla_allow_excess_precision=true``
-    (set by this machine's TPU runtime) XLA elides the round-trip, which
-    silently collapses the multi-pass split to single-bf16 accuracy
-    (measured: 1.6e-3 rel err). A masked value is exactly representable
-    in bf16, so the final conversion cannot lose bits either.
-
-    Canonical home of the split shared by the MXU gather plans
-    (``ops/mxu_gather.py``) and the one-hot scatter engines below.
-    """
-    parts = []
-    rem = v
-    for _ in range(passes - 1):
-        hi = jax.lax.bitcast_convert_type(
-            jax.lax.bitcast_convert_type(rem, jnp.uint32)
-            & jnp.uint32(0xFFFF0000),
-            jnp.float32)
-        parts.append(hi.astype(jnp.bfloat16))
-        rem = rem - hi
-    parts.append(rem.astype(jnp.bfloat16))
-    return parts
-
-
-def use_mxu_scatter(n_events: int, n_out: int, dtype) -> bool:
-    """Decide whether the MXU one-hot strategy applies.
-
-    Requires a float32-compatible dtype and ``n_out`` at or under the
-    configured limit; the event axis is chunked, so any event count
-    qualifies (total MXU work is ``n_events x n_out`` MACs).
-    """
-    del n_events  # chunked over events — any count
-    dtype = jnp.dtype(dtype)
-    if dtype not in (jnp.dtype(jnp.float32), jnp.dtype(jnp.bfloat16), jnp.dtype(jnp.float16)):
-        return False
-    return n_out <= config.get_mxu_scatter_limit()
-
-
-def _onehot_scatter_add(targets: jax.Array, values: jax.Array, n_out: int) -> jax.Array:
-    """Scatter-add via two one-hot factors contracted on the MXU.
-
-    ``out[p] = sum_e values[e] * [targets[e] == p]`` with
-    ``p = 128*block + lane``::
-
-        M2[b, e] = [targets[e] // 128 == b]                  (B, E)
-        M1[e, l] = values[e] * [targets[e] % 128 == l]       (E, 128)
-        out      = (M2 @ M1).reshape(B*128)[:n_out]
-
-    Out-of-range targets (used for masking) contribute nothing. The event
-    axis is processed in chunks so the one-hot factors stay a few MB of
-    working set regardless of the event count; accumulation is f32.
-
-    MXU precision (``config.set_scatter_passes``): the block one-hot is
-    exact 0/1 in bf16, so only the value-carrying lane factor needs
-    mantissa — :func:`bf16_split` of the values into ``passes`` bf16
-    components, one full-rate bf16 dot each. 3 passes reconstruct f32
-    exactly (each MXU product is ``s_k x {0,1}``) in half the MXU
-    passes of the ``passes=6`` HIGHEST f32 dot — but measured on v5e
-    (``scripts/tpu_scatter_passes_ab.py``) the route is bound by the
-    one-hot factor build/traffic, not MXU passes: p3 ties p6, only the
-    lossy p2 wins mid-shape. Default 6.
-    """
-    e_total = targets.shape[0]
-    n_blocks = -(-n_out // 128)
-    passes = config.get_scatter_passes()
-    chunk = min(_MXU_CHUNK_EVENTS, max(e_total, 1))
-    n_chunks = -(-e_total // chunk)
-    pad = n_chunks * chunk - e_total
-    if pad:
-        targets = jnp.concatenate(
-            [targets, jnp.full(pad, n_out, targets.dtype)])
-        values = jnp.concatenate([values, jnp.zeros(pad, values.dtype)])
-
-    lanes_iota = jax.lax.broadcasted_iota(jnp.int32, (chunk, 128), 1)
-    blocks_iota = jax.lax.broadcasted_iota(jnp.int32, (n_blocks, chunk), 0)
-
-    def body(c, out2d):
-        tgt = jax.lax.dynamic_slice(targets, (c * chunk,), (chunk,))
-        val = jax.lax.dynamic_slice(values, (c * chunk,), (chunk,))
-        blk = tgt // 128
-        lane_hit = lanes_iota == (tgt % 128)[:, None]
-        if passes == 6:
-            # legacy: values ride the block factor, one HIGHEST f32 dot
-            m2 = jnp.where(blocks_iota == blk[None, :], val[None, :], 0
-                           ).astype(jnp.float32)
-            m1 = lane_hit.astype(jnp.float32)
-            return out2d + jnp.dot(
-                m2, m1, preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST)
-        m2 = (blocks_iota == blk[None, :]).astype(jnp.bfloat16)
-        acc = out2d
-        for s_k in bf16_split(val, passes):
-            m1_k = jnp.where(lane_hit, s_k[:, None], jnp.bfloat16(0))
-            acc = acc + jnp.dot(m2, m1_k,
-                                preferred_element_type=jnp.float32)
-        return acc
-
-    out2d = jax.lax.fori_loop(
-        0, n_chunks, body,
-        jnp.zeros((n_blocks, 128), jnp.float32))
-    return out2d.reshape(n_blocks * 128)[:n_out]
-
-
-# Sorted windowed scatter knobs: events per sorted chunk, and the block
-# window each chunk's dot covers (rel = blk - chunk_base < W; overflow
-# lax.cond's into the dense route). Measured on v5e
-# (scripts/tpu_windowed_scatter_proto.py sweeps): at uniform (E=92160,
-# n_out=81920), C=1024/W=32 is the best case (213.7 us vs 612 one-hot /
-# 604 XLA) but BLENDS with the overflow fallback on sentinel-heavy
-# streams (the JITC event route: 18k real of 90k slots -> chunks span
-# ~36 blocks -> 876 us, WORSE than one-hot). W=64 is the robust
-# optimum: 298-301 us at 18k-45k real, 323 us uniform, 657 us at
-# (184320, 163840) — ~2x everywhere with no pathological blend.
-# At (40960, 40960) the one-hot still wins (106 vs 126) — crossover
-# between 40k and 80k outputs, hence min_out default 65536.
-_WINDOW_CHUNK = 1024
-_WINDOW_BLOCKS = 64
-
-
-def _windowed_scatter_add(targets: jax.Array, values: jax.Array,
-                          n_out: int, dense_route) -> jax.Array:
-    """Sorted windowed scatter-add — the large-``n_out`` strategy.
-
-    The one-hot route materializes a ``(B, E)`` block factor whose
-    build/traffic dominates once ``B = n_out/128`` is large (measured:
-    NOT MXU-pass-bound — see ``scatter_passes``). Instead: sort events
-    by target block (variadic 3-operand sort, no gathers), cut the
-    sorted stream into ``C``-event chunks, and contract each chunk
-    against only the ``W`` blocks above its base block::
-
-        rel[c, e] = blk[c, e] - blk[c, 0]           (< W or overflow)
-        part[c] = onehot(rel) @ (values * onehot(lane))   (W, 128)
-        out[blk[c,0] + w] += part[c, w]             (nch*W row adds)
-
-    MXU work drops from ``E x B x 128`` to ``E x W x 128`` MACs and the
-    ``(B, E)`` intermediate disappears; the row scatter adds
-    ``nch x W`` 128-lane rows (~23 us at nch=180). Any chunk spanning
-    more than ``W`` blocks (sparse streams) overflows into
-    *dense_route* via ``lax.cond``, so results stay exact at any
-    distribution. Masked/sentinel targets (``== n_out``) sort to the
-    tail and land past the ``[:n_out]`` slice or carry zero values.
-    """
-    C, W = _WINDOW_CHUNK, _WINDOW_BLOCKS
-    E = targets.shape[0]
-    B = -(-n_out // 128)
-    blk = targets // 128
-    lane = targets % 128
-    nch = -(-E // C)
-    pad = nch * C - E
-    if pad:
-        # sentinel pad: sorts last, value 0
-        blk = jnp.concatenate([blk, jnp.full(pad, B, jnp.int32)])
-        lane = jnp.concatenate([lane, jnp.zeros(pad, jnp.int32)])
-        values = jnp.concatenate([values, jnp.zeros(pad, values.dtype)])
-    sb, sl, sv = jax.lax.sort((blk, lane, values), num_keys=1)
-    sb = sb.reshape(nch, C)
-    sl = sl.reshape(nch, C)
-    sv = sv.reshape(nch, C)
-    base = sb[:, 0]
-    rel = sb - base[:, None]
-    overflow = jnp.any((rel >= W) & (sb < B))
-    relc = jnp.clip(rel, 0, W - 1)
-    svz = jnp.where(rel < W, sv, 0.0)
-    w_iota = jax.lax.broadcasted_iota(jnp.int32, (nch, W, C), 1)
-    l_iota = jax.lax.broadcasted_iota(jnp.int32, (nch, C, 128), 2)
-    m2 = (w_iota == relc[:, None, :]).astype(jnp.float32)
-    m1 = jnp.where(l_iota == sl[:, :, None], svz[:, :, None], 0.0)
-    part = jax.lax.dot_general(
-        m2, m1, (((2,), (1,)), ((0,), (0,))),
-        precision=jax.lax.Precision.HIGHEST,
-        preferred_element_type=jnp.float32)               # (nch, W, 128)
-    rows = (base[:, None] + jnp.arange(W)[None, :]).reshape(-1)
-    out2d = jnp.zeros((B + W, 128), jnp.float32).at[rows].add(
-        part.reshape(nch * W, 128), mode='drop')
-    fast = out2d.reshape(-1)[:n_out]
-    return jax.lax.cond(overflow, dense_route, lambda: fast)
-
-
-def use_windowed_scatter(n_events: int, n_out: int, dtype) -> bool:
-    """Decide whether the sorted windowed strategy applies.
-
-    Float-compatible dtype, ``n_out`` at or above the configured
-    minimum, and a dense-enough stream that chunks rarely span more
-    than the window (expected chunk span is ``C * B / E`` blocks; the
-    2x margin keeps the overflow fallback rare for ~uniform streams —
-    skewed streams overflow into the exact dense route).
-    """
-    dtype = jnp.dtype(dtype)
-    if dtype not in (jnp.dtype(jnp.float32), jnp.dtype(jnp.bfloat16),
-                     jnp.dtype(jnp.float16)):
-        return False
-    min_out = config.get_windowed_scatter_min_out()
-    if min_out <= 0 or n_out < min_out:
-        return False
-    n_blocks = -(-n_out // 128)
-    return n_events * _WINDOW_BLOCKS >= 2 * _WINDOW_CHUNK * n_blocks
+__all__ = ['event_scatter_add', 'event_scatter_add_multi', 'masked_gather']
 
 
 def event_scatter_add(
@@ -257,7 +41,7 @@ def event_scatter_add(
     mask: Optional[jax.Array] = None,
     dtype=None,
 ) -> jax.Array:
-    """``out[targets[e]] += values[e]`` over all events ``e``, TPU-native.
+    """``out[targets[e]] += values[e]`` over all events ``e``.
 
     Parameters
     ----------
@@ -277,57 +61,15 @@ def event_scatter_add(
     jax.Array of shape ``(n_out,)``.
     """
     targets = jnp.asarray(targets)
-    values = jnp.broadcast_to(jnp.asarray(values), targets.shape)
-    if mask is not None:
-        mask = jnp.broadcast_to(mask, targets.shape)
-    targets = targets.reshape(-1).astype(jnp.int32)
-    values = values.reshape(-1)
+    values = jnp.broadcast_to(jnp.asarray(values), targets.shape).reshape(-1)
     out_dtype = jnp.dtype(dtype or values.dtype)
-    n_events = targets.shape[0]
-
     if mask is not None:
-        mask_flat = mask.reshape(-1)
-        # Out-of-range sentinel drops the event in both strategies.
-        targets = jnp.where(mask_flat, targets, n_out)
-
-    if use_windowed_scatter(n_events, n_out, out_dtype):
-        vals32 = values.astype(jnp.float32)
-        if mask is not None:
-            vals32 = jnp.where(mask_flat, vals32, 0.0)
-
-        def dense_route():
-            if use_mxu_scatter(n_events, n_out, out_dtype):
-                return _onehot_scatter_add(targets, vals32, n_out)
-            return jnp.zeros(n_out, jnp.float32).at[targets].add(
-                vals32, mode='drop')
-
-        return _windowed_scatter_add(
-            targets, vals32, n_out, dense_route).astype(out_dtype)
-
-    if use_mxu_scatter(n_events, n_out, out_dtype):
-        vals32 = values.astype(jnp.float32)
-        if mask is not None:
-            vals32 = jnp.where(mask_flat, vals32, 0.0)
-        return _onehot_scatter_add(targets, vals32, n_out).astype(out_dtype)
-
+        # the out-of-range sentinel drops the event
+        targets = jnp.where(jnp.broadcast_to(mask, targets.shape), targets,
+                            n_out)
+    targets = targets.reshape(-1).astype(jnp.int32)
     out = jnp.zeros(n_out, dtype=out_dtype)
     return out.at[targets].add(values.astype(out_dtype), mode='drop')
-
-
-def segment_sum_sorted(values: jax.Array, segment_ids: jax.Array,
-                       num_segments: int, *, dtype=None) -> jax.Array:
-    """Segment sum for SORTED ascending segment ids.
-
-    NOTE (measured, BENCH_PRIMS_r02.json): on this TPU generation
-    ``jax.ops.segment_sum(indices_are_sorted=True)`` lowers ~1.5x SLOWER
-    than the plain scatter-add engine — the kernels therefore route
-    through :func:`event_scatter_add` instead. This helper stays for API
-    completeness and for backends where the sorted hint wins.
-    """
-    out_dtype = jnp.dtype(dtype or values.dtype)
-    return jax.ops.segment_sum(
-        values.astype(out_dtype), segment_ids.astype(jnp.int32),
-        num_segments=num_segments, indices_are_sorted=True)
 
 
 def event_scatter_add_multi(
@@ -335,12 +77,12 @@ def event_scatter_add_multi(
     values: jax.Array,
     n_out: int,
 ) -> jax.Array:
-    """Multi-channel scatter-add sharing one one-hot factor.
+    """Multi-channel scatter-add over one shared target stream.
 
-    ``out[c, p] = sum_e values[c, e] * [targets[e] == p]`` — all channels
-    ride a single ``(C*B, E) @ (E, 128)`` MXU matmul, so e.g. the excitatory
-    and inhibitory projections of an EI network cost one contraction.
-    Masking is expressed by zeroing ``values`` (and/or out-of-range targets).
+    ``out[c, p] = sum_e values[c, e] * [targets[e] == p]``, e.g. the
+    excitatory and inhibitory projections of an EI network sharing one
+    spike compaction. Masking is expressed by zeroing ``values`` or by
+    out-of-range targets.
 
     Parameters
     ----------
@@ -353,65 +95,16 @@ def event_scatter_add_multi(
     (C, n_out) float32 array.
     """
     targets = targets.reshape(-1).astype(jnp.int32)
-    e_total = targets.shape[0]
-    n_chan = values.shape[0]
-    n_blocks = -(-n_out // 128)
-    if not use_mxu_scatter(e_total, n_out, jnp.float32):
-        outs = [
-            jnp.zeros(n_out, jnp.float32).at[targets].add(
-                values[i].astype(jnp.float32), mode='drop')
-            for i in range(n_chan)
-        ]
-        return jnp.stack(outs)
-
-    chunk = min(_MXU_CHUNK_EVENTS, max(e_total, 1))
-    n_chunks = -(-e_total // chunk)
-    pad = n_chunks * chunk - e_total
-    if pad:
-        targets = jnp.concatenate(
-            [targets, jnp.full(pad, n_out, targets.dtype)])
-        values = jnp.concatenate(
-            [values, jnp.zeros((n_chan, pad), values.dtype)], axis=1)
-
-    lanes_iota = jax.lax.broadcasted_iota(jnp.int32, (chunk, 128), 1)
-    blocks_iota = jax.lax.broadcasted_iota(
-        jnp.int32, (n_chan, n_blocks, chunk), 1)
-
-    passes = config.get_scatter_passes()
-
-    def body(ci, out2d):
-        tgt = jax.lax.dynamic_slice(targets, (ci * chunk,), (chunk,))
-        val = jax.lax.dynamic_slice(
-            values, (0, ci * chunk), (n_chan, chunk))
-        blk = tgt // 128
-        lane = tgt % 128
-        blk_hit = blocks_iota == blk[None, None, :]
-        if passes == 6:
-            m2 = jnp.where(blk_hit, val[:, None, :], 0).astype(jnp.float32)
-            m1 = (lanes_iota == lane[:, None]).astype(jnp.float32)
-            return out2d + jnp.dot(
-                m2.reshape(n_chan * n_blocks, chunk), m1,
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST)
-        # values ride the (channel-distinct) block factor here, so the
-        # bf16 split applies to it; the shared lane one-hot is exact 0/1
-        m1 = (lanes_iota == lane[:, None]).astype(jnp.bfloat16)
-        acc = out2d
-        for s_k in bf16_split(val.astype(jnp.float32), passes):
-            m2_k = jnp.where(blk_hit, s_k[:, None, :], jnp.bfloat16(0))
-            acc = acc + jnp.dot(m2_k.reshape(n_chan * n_blocks, chunk), m1,
-                                preferred_element_type=jnp.float32)
-        return acc
-
-    out2d = jax.lax.fori_loop(
-        0, n_chunks, body,
-        jnp.zeros((n_chan * n_blocks, 128), jnp.float32))
-    return out2d.reshape(n_chan, n_blocks * 128)[:, :n_out]
+    return jnp.stack([
+        jnp.zeros(n_out, jnp.float32).at[targets].add(
+            values[c].astype(jnp.float32), mode='drop')
+        for c in range(values.shape[0])
+    ])
 
 
 def masked_gather(src: jax.Array, idx: jax.Array, mask: Optional[jax.Array] = None, fill=0):
     """``src[idx]`` with invalid lanes replaced by *fill* (gather with drop
-    semantics; the TPU-friendly direction of every transpose product)."""
+    semantics; the gather direction of every transpose product)."""
     idx = jnp.asarray(idx)
     taken = jnp.take(src, jnp.clip(idx, 0, src.shape[0] - 1), axis=0)
     if mask is None:

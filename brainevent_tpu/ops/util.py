@@ -19,7 +19,7 @@ Capability parity with reference ``brainevent/_op/util.py``: multi-result JVP
 registration (``defjvp``), the generic loop/stack vmap fallback
 (``general_batching_rule``), output-spec normalization
 (``abstract_arguments``), and dtype suffix helpers used for kernel-name
-mangling — re-implemented for a JAX/TPU-first stack.
+mangling — re-implemented for a JAX stack.
 """
 
 import functools
@@ -210,7 +210,8 @@ def _import_warp():
     except ImportError:
         raise ImportError(
             'NVIDIA Warp is not installed. The warp backend is a GPU-only '
-            'integration kept for API parity; on TPU use the pallas backend.'
+            'integration kept for API parity; the jax_raw backend serves '
+            'every platform.'
         ) from None
 
 

@@ -1,8 +1,8 @@
 # Copyright 2026 The brainevent-tpu Authors.
 # Licensed under the Apache License, Version 2.0.
 
-"""Multi-chip parallelism over ICI device meshes (TPU-native extension;
-the reference has no distributed layer, SURVEY §2.9)."""
+"""Multi-device parallelism over device meshes (an extension; the reference
+has no distributed layer, SURVEY §2.9)."""
 
 from .sharding import (ShardedEINet, ShardedEINetState, neuron_mesh,
                        host_chip_mesh)
@@ -10,7 +10,6 @@ from .sharding import (ShardedEINet, ShardedEINetState, neuron_mesh,
 __all__ = ['ShardedEINet', 'ShardedEINetState', 'neuron_mesh',
            'host_chip_mesh']
 
-from .mega import MegaScatterLayout, mega_local_counts
 from .ops import (
     sharded_binary_fcnmv, sharded_fcnmv,
     sharded_binary_fcnmm, sharded_fcnmm,
@@ -21,7 +20,6 @@ from .ops import (
 )
 
 __all__ += [
-    'MegaScatterLayout', 'mega_local_counts',
     'sharded_jitmv',
     'sharded_binary_fcnmv', 'sharded_fcnmv',
     'sharded_binary_fcnmm', 'sharded_fcnmm',

@@ -13,9 +13,9 @@
 # limitations under the License.
 # ==============================================================================
 
-"""Sharded event-driven operators over an ICI device mesh.
+"""Sharded event-driven operators over a device mesh.
 
-Op-level multi-chip wrappers (TPU-native extension; the reference is
+Op-level multi-device wrappers (an extension; the reference is
 single-GPU, SURVEY §2.9). The sharding recipe for event SpMV follows the
 "How to Scale Your Model" playbook: pick a mesh, shard the synapse tables
 by presynaptic rows aligned with the spike vector, compute local partials
@@ -365,7 +365,7 @@ def sharded_csrmm(weights, indices, indptr, B, *, mesh: Mesh, shape,
 # =============================================================================
 # JITC (implicit connectivity): rows partition across the mesh; each shard
 # walks its GLOBAL row range (engine row0 hook) so the sampled matrix is
-# partition-invariant — the TPU answer to "shard a matrix with no storage".
+# partition-invariant — how to shard a matrix with no storage.
 # =============================================================================
 
 _JITC_LAWS = {}

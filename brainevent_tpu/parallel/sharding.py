@@ -13,11 +13,11 @@
 # limitations under the License.
 # ==============================================================================
 
-"""Multi-chip SNN simulation over an ICI device mesh.
+"""Multi-device SNN simulation over a device mesh.
 
 The reference is single-GPU only (SURVEY §2.9: no distributed layer). This
-module is the TPU-native extension: neuron-axis model parallelism via
-``shard_map`` over a ``jax.sharding.Mesh``.
+module adds neuron-axis model parallelism via ``shard_map`` over a
+``jax.sharding.Mesh``.
 
 Design (one step, per device):
 
@@ -25,8 +25,9 @@ Design (one step, per device):
    conductances, and the *outgoing* connectivity rows of its neurons.
 2. Local spikes scatter through local ELL rows into a full-length partial
    current vector (no communication — targets may be anywhere).
-3. A single ``psum_scatter`` (reduce-scatter, riding ICI) reduces the
-   partials and hands every device exactly its neuron slice's increments.
+3. One ``psum_scatter`` (reduce-scatter, which XLA lowers to NCCL on GPUs)
+   per synapse class reduces the partials and hands every device exactly
+   its neuron slice's increments.
 4. The LIF membrane update is purely local.
 
 Per step the only collective traffic is one reduce-scatter of two f32
@@ -58,20 +59,21 @@ def neuron_mesh(n_devices: Optional[int] = None, axis: str = 'neurons') -> Mesh:
 def host_chip_mesh(n_hosts: Optional[int] = None,
                    chips_per_host: Optional[int] = None,
                    axes=('hosts', 'chips')) -> Mesh:
-    """A 2-D ``(hosts, chips)`` mesh — the multi-host (DCN x ICI) layout.
+    """A 2-D ``(hosts, chips)`` mesh — the multi-host layout.
 
-    On a real multi-host slice the outer axis crosses DCN and the inner
-    axis rides ICI, so shardings that ``psum_scatter`` over ``chips`` and
-    all-gather over ``hosts`` keep the heavy traffic on ICI ("How to Scale
-    Your Model" recipe). On a single host this still produces a valid
-    hierarchical mesh for layout testing (e.g. 2x4 over 8 virtual CPUs).
+    On a multi-host cluster the outer axis crosses the network between
+    hosts and the inner axis stays on the host's device interconnect, so
+    shardings that ``psum_scatter`` over ``chips`` and all-gather over
+    ``hosts`` keep the heavy traffic inside a host. On a single host this
+    still produces a valid hierarchical mesh for layout testing (e.g. 2x4
+    over 8 virtual CPUs).
     The sharded ops (``parallel/ops.py``) accept ``axis=('hosts',
     'chips')`` to shard the row axis over both.
     """
     import numpy as np
     # jax.devices() order is not guaranteed to group by process; if it
-    # interleaves, a blind reshape would put DCN hops on the inner "chips"
-    # axis and invert the intended ICI/DCN traffic split. Sort so each
+    # interleaves, a blind reshape would put cross-host hops on the inner
+    # "chips" axis and invert the intended traffic split. Sort so each
     # mesh row holds one process's devices.
     devs = sorted(jax.devices(),
                   key=lambda d: (getattr(d, 'process_index', 0),
@@ -115,12 +117,6 @@ class ShardedEINet:
     coba: bool = True
     seed: int = 0
     indices: Optional[jax.Array] = None   # (num, n_conn) global ELL table
-    # 'scatter': per-device event_scatter_add partials (ops/scatter.py).
-    # 'mxu6': the mega-kernel's partitioned-table one-hot scatter as a
-    # per-device single-step Pallas kernel (parallel/mega.py) — the
-    # multi-chip factorization of models/pallas_sim.einet_pallas_sim_mxu6.
-    # Both are count-then-scale exact and bitwise interchangeable.
-    propagate: str = 'scatter'
 
     def __post_init__(self):
         self.axis = self.mesh.axis_names[0]
@@ -129,10 +125,6 @@ class ShardedEINet:
             raise ValueError(
                 f'num ({self.num}) must be divisible by the mesh size '
                 f'({self.n_dev}).')
-        if self.propagate not in ('scatter', 'mxu6'):
-            raise ValueError(
-                f"propagate must be 'scatter' or 'mxu6', got "
-                f"{self.propagate!r}")
         self.n_exc = int(self.num * self.exc_fraction)
         self.params = LIFRefParams()
         key = jax.random.PRNGKey(self.seed)
@@ -149,18 +141,6 @@ class ShardedEINet:
                     f'({self.num}, {self.n_conn})')
         self.row_sharding = NamedSharding(self.mesh, P(self.axis))
         self.indices = jax.device_put(self.indices, self.row_sharding)
-        self._mega = None
-        if self.propagate == 'mxu6':
-            import numpy as np
-            from .mega import MegaScatterLayout
-            if (self.num // self.n_dev) % 128:
-                raise ValueError(
-                    "propagate='mxu6' needs num/n_dev divisible by 128 "
-                    '(the table shard is 128-lane tiled).')
-            self._mega = MegaScatterLayout(
-                np.asarray(self.indices), self.n_exc, self.num)
-            self._mega_conn = jax.device_put(
-                self._mega.conn_flat, self.row_sharding)
 
     @classmethod
     def from_einet(cls, einet, mesh: Mesh) -> 'ShardedEINet':
@@ -200,8 +180,7 @@ class ShardedEINet:
 
     # -- per-device step body -------------------------------------------------
 
-    def _local_step(self, state: ShardedEINetState, indices_loc, t, inp,
-                    mega_args=None):
+    def _local_step(self, state: ShardedEINetState, indices_loc, t, inp):
         p = self.params
         axis = self.axis
         n_loc = state.v.shape[0]
@@ -230,26 +209,16 @@ class ShardedEINet:
         # Propagate THIS step's crossings (pre-reset — same single-scatter
         # semantics as EINet.step): local hit-COUNT scatter of excitatory/
         # inhibitory events into full-length partials, one reduce-scatter
-        # each over ICI, then scale by the homogeneous weight. Counting
-        # first keeps every partial an exact small integer in f32, so the
-        # cross-device reduction is exact and the result is bitwise equal
-        # to the single-chip count-then-scale path (EINet._propagate).
-        if mega_args is not None:
-            # mega-kernel route: the mxu6 partitioned-table one-hot
-            # scatter per device (parallel/mega.py) — the E/I class of
-            # each SOURCE is baked into the encoded table, so one kernel
-            # call yields both class partials, count-exact.
-            from .mega import mega_local_counts
-            conn_enc_loc, pmap = mega_args
-            part_e, part_i = mega_local_counts(
-                spike, conn_enc_loc, pmap, layout=self._mega)
-        else:
-            part_e = event_scatter_add(
-                indices_loc, 1.0, self.num,
-                mask=(spike & is_exc)[:, None], dtype=jnp.float32)
-            part_i = event_scatter_add(
-                indices_loc, 1.0, self.num,
-                mask=(spike & ~is_exc)[:, None], dtype=jnp.float32)
+        # each, then scale by the homogeneous weight. Counting first keeps
+        # every partial an exact small integer in f32, so the cross-device
+        # reduction is exact and the result is bitwise equal to the
+        # single-device count-then-scale path (EINet._propagate).
+        part_e = event_scatter_add(
+            indices_loc, 1.0, self.num,
+            mask=(spike & is_exc)[:, None], dtype=jnp.float32)
+        part_i = event_scatter_add(
+            indices_loc, 1.0, self.num,
+            mask=(spike & ~is_exc)[:, None], dtype=jnp.float32)
         inc_e = self.w_e * jax.lax.psum_scatter(
             part_e, axis, scatter_dimension=0, tiled=True)
         inc_i = self.w_i * jax.lax.psum_scatter(
@@ -266,20 +235,6 @@ class ShardedEINet:
     def step_fn(self):
         """Return a jittable sharded step ``(state, t, inp) -> state``."""
         spec = P(self.axis)
-
-        if self._mega is not None:
-            @partial(jax.shard_map, mesh=self.mesh,
-                     in_specs=(ShardedEINetState(*(spec,) * 5), spec,
-                               spec, P(), P(), P()),
-                     out_specs=ShardedEINetState(*(spec,) * 5),
-                     check_vma=False)
-            def step_m(state, indices, conn_enc, pmap, t, inp):
-                return self._local_step(state, indices, t, inp,
-                                        mega_args=(conn_enc, pmap))
-
-            return lambda state, t, inp=20.0: step_m(
-                state, self.indices, self._mega_conn, self._mega.pmap,
-                jnp.asarray(t, jnp.float32), jnp.asarray(inp, jnp.float32))
 
         @partial(jax.shard_map, mesh=self.mesh,
                  in_specs=(ShardedEINetState(*(spec,) * 5), spec, P(), P()),

@@ -18,10 +18,9 @@
 Capability parity with ``brainevent/_pallas_random.py`` (``PallasLFSR88RNG``,
 ``PallasLFSR113RNG``, ``PallasLFSR128RNG``): pytree-registered counter RNGs
 whose state is four ``uint32`` values and whose steps use only shifts, masks,
-and XORs — exactly the operations the TPU VPU executes at full width. Because
-every method is elementwise, the state may be a *tile* of independent streams
-(e.g. ``(8, 128)`` uint32), which is the idiomatic TPU usage: one stream per
-vector lane rather than one per CUDA thread.
+and XORs. Because every method is elementwise, the state may be a *tile* of
+independent streams (e.g. ``(8, 128)`` uint32): one stream per vector lane
+rather than one per CUDA thread.
 
 The three generators are L'Ecuyer's combined Tausworthe families with periods
 ~2^88, ~2^113, and ~2^128. Select the family globally with

@@ -13,22 +13,22 @@
 # limitations under the License.
 # ==============================================================================
 
-"""light-RNG: the stateless connectivity sampler, vectorized for the VPU.
+"""light-RNG: the stateless connectivity sampler, vectorized.
 
 The reference implements this sampler twice — CUDA device code and a
 bit-exact Numba port (``brainevent/_numba_random.py:370-677``) — and uses it
 to *regenerate* the connectivity of the JIT-connectivity matrices on every
-kernel call instead of storing weights. This module is the TPU-native third
-expression of the same mathematical spec: **pure uint32 JAX ops**, written to
-run identically
+kernel call instead of storing weights. This module is a third expression
+of the same mathematical spec: **pure uint32 JAX ops**, written to run
+identically
 
 - as plain XLA code (the ``jax_raw`` backends),
-- inside Pallas TPU kernels (the same functions trace into Mosaic), and
+- inside Pallas kernels (the same functions trace into them), and
 - under vmap over whole tiles of streams at once.
 
 All functions are elementwise over uint32 arrays and avoid 64-bit arithmetic
-(TPU has no native u64): the ``(a*b) >> 32`` high-multiply is computed from
-16-bit limbs.
+(no u64 is needed, so x64 mode stays optional): the ``(a*b) >> 32``
+high-multiply is computed from 16-bit limbs.
 
 Algorithm components (same constants as the reference spec):
 
@@ -65,7 +65,7 @@ def _u32(x):
 
 def _mulhi32(a, b):
     """High 32 bits of the 64-bit product of two uint32 arrays, via 16-bit
-    limbs (no u64 — TPU friendly)."""
+    limbs (no u64)."""
     a = _u32(a)
     b = _u32(b)
     a_hi, a_lo = a >> _U(16), a & _U(0xFFFF)
@@ -120,8 +120,7 @@ def light_rng_uniform01(seed, row, col):
     h = h ^ (_u32(row) * _U(0xE7037ED1))
     h = h ^ (_u32(col) * _U(0x8EBC6AF1))
     h = light_rng_mix32(h)
-    # cast via int32: the masked value is 24-bit so the route is exact,
-    # and Mosaic has no direct uint32 -> float32 cast
+    # cast via int32: the masked value is 24-bit so the route is exact
     return (h & _U(0x00FFFFFF)).astype(jnp.int32).astype(
         jnp.float32) * jnp.float32(1.0 / 16777216.0)
 

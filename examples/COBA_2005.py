@@ -7,22 +7,23 @@
 #   a review of tools and strategies. J. Comput. Neurosci., 23, 349-398.
 # - Vogels, T. P. and Abbott, L. F. (2005), J. Neurosci., 25, 10786-95.
 #
-# The TPU-native counterpart of the reference benchmark
-# (/root/reference/examples/COBA_2005.py: 2.66 s / 100k steps at 4k neurons
-# on an NVIDIA A6000): 10 s of biological time at dt = 0.1 ms, event-driven
-# fixed-probability connectivity (~80 synapses/neuron), one jitted step loop.
+# Counterpart of the reference benchmark examples/COBA_2005.py.
+# 10 s of biological time at dt = 0.1 ms, event-driven fixed-probability
+# connectivity (~80 synapses/neuron), one jitted step loop (EINet.run).
+#
+# Run: python examples/COBA_2005.py
 
 import os
 import sys
 import time
 
-sys.path.insert(0, os.path.abspath(
-    os.path.join(os.path.dirname(__file__), '..')))
+_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), '..'))
+sys.path.insert(0, _ROOT)
 
 import jax
 
+from brainevent_tpu import config
 from brainevent_tpu.models import EINet
-from brainevent_tpu.models.pallas_sim import einet_pallas_sim
 
 DURATION_MS = 10_000.0
 DT_MS = 0.1
@@ -30,28 +31,19 @@ N_STEPS = int(DURATION_MS / DT_MS)
 
 
 def run(scale: float):
-    """Prefer the whole-simulation Pallas mega-kernel (VMEM-resident);
-    fall back to the XLA step loop for sizes beyond the VMEM budget."""
     net = EINet(scale=scale, coba=True)
     state0 = net.init_state()
-    try:
-        run_fn = jax.jit(lambda s: einet_pallas_sim(net, s, N_STEPS))
-        jax.block_until_ready(run_fn(state0))  # compile + warm up
-        t0 = time.time()
-        out = jax.block_until_ready(run_fn(state0))
-        elapsed = time.time() - t0
-        rate = float(out[4].mean()) / (N_STEPS * net.dt * 1e-3)
-    except Exception:
-        run_fn = jax.jit(lambda s: net.run(N_STEPS, state=s))
-        jax.block_until_ready(run_fn(state0))
-        t0 = time.time()
-        final = jax.block_until_ready(run_fn(state0))
-        elapsed = time.time() - t0
-        rate = float(net.firing_rate_hz(final, N_STEPS))
+    run_fn = jax.jit(lambda s: net.run(N_STEPS, state=s))
+    jax.block_until_ready(run_fn(state0))  # compile + warm up
+    t0 = time.perf_counter()
+    final = jax.block_until_ready(run_fn(state0))
+    elapsed = time.perf_counter() - t0
+    rate = float(net.firing_rate_hz(final, N_STEPS))
     return net.num, elapsed, rate
 
 
 if __name__ == '__main__':
+    config.entry_point_cache(os.path.join(_ROOT, '.jax_cache'))
     for s in [1, 2, 4, 10]:
         n, t, rate = run(s)
         print(f'scale={s}, size={n}, time = {t:.3f} s, '

@@ -8,16 +8,12 @@
 # weights are redrawn from the seed inside every product (reference
 # brainevent/_jit_normal/main.py).
 #
-# TPU route: each projection binds a walk plan once (build_walk_plan —
-# the stationary-q stream setup is ~70% of a cold product), and spike
-# propagation runs the event-compacted scatter (jitc/event_route.py):
-# only the spiking rows' streams walk, candidates scatter on the MXU,
+# Each projection binds a walk plan once (build_walk_plan), and spike
+# propagation runs the event-compacted scatter (jitc/event_route.py): only
+# the spiking rows' streams walk, candidates scatter-add into the output,
 # and bursts fall back — exactly — to the full product.
 #
-# Measured on a TPU v5e (2000-step jitted loop, fresh states, ~22 Hz):
-#   n=4,000  : 204.7 us/step
-#   n=20,000 : 473.5 us/step
-#   n=80,000 : 2136 us/step (compile 96 s) — 0 bytes of stored weights
+# Run: python examples/JITC_network.py [scale] [normal|uniform]
 
 import os
 import sys
@@ -51,6 +47,9 @@ def run(scale: float, weight_law: str = 'normal'):
 
 
 if __name__ == '__main__':
+    from brainevent_tpu import config
+    config.entry_point_cache(os.path.abspath(
+        os.path.join(os.path.dirname(__file__), '..', '.jax_cache')))
     scale = float(sys.argv[1]) if len(sys.argv) > 1 else 1.0
     law = sys.argv[2] if len(sys.argv) > 2 else 'normal'
     run(scale, law)

@@ -3,20 +3,19 @@
 
 """Tour of the benchmark harness (reference
 ``examples/benchmark_example.py`` + ``benchmark_print_examples.py``,
-redesigned for the TPU deployment).
+redesigned).
 
 Demonstrates:
 
   1. ``XLACustomKernel.benchmark()`` — every registered backend over the
      primitive's registered data grid
-  2. ``benchmark_function`` — time any callable, with the two
-     relay-proof knobs this machine needs (fused ``iterations`` +
-     ``vary_runs`` input rolling; see BENCH_NOTES.md "relay traps")
+  2. ``benchmark_function`` — time any callable, with fused
+     ``iterations`` (many applications in one device call)
   3. Accessing raw ``BenchmarkRecord``s programmatically
   4. Saving / reloading results (JSON and CSV)
   5. The CLI equivalent, in-process
 
-Run from the project root (CPU or TPU):
+Run from the project root (CPU or GPU):
     python examples/benchmark_primitives.py
 """
 
@@ -41,7 +40,7 @@ def main():
     result = binary_csrmv_p.benchmark(n_warmup=1, n_runs=3, max_configs=1,
                                       verbose=True)
 
-    # -- 2. ad-hoc callable timing with the relay-proof protocol --------
+    # -- 2. ad-hoc callable timing with fused iterations ----------------
     x = jnp.asarray(np.random.default_rng(0).random((8, 512)),
                     dtype=jnp.float32)
     r2 = benchmark_function(
@@ -50,7 +49,7 @@ def main():
         name='tanh-gram',
         n_warmup=1, n_runs=3,
         iterations=50,   # 50 applications fused into ONE device call
-        loop_arg=0,      # which argument the fused loop re-feeds/rolls
+        loop_arg=0,      # which argument carries the loop dependence
     )
 
     # -- 3. raw records --------------------------------------------------

@@ -1,13 +1,11 @@
 # Copyright 2026 The brainevent-tpu Authors.
 # Licensed under the Apache License, Version 2.0.
 
-"""Registering custom kernels — the TPU-deployment counterpart of the
-reference's ``examples/numba_cuda_example.py`` /
-``numba_cuda_callable_example.py`` (CUDA-era capability, redesigned:
-device kernels are Pallas/Mosaic; native host kernels are C++ XLA-FFI
-or Numba-cfunc FFI).
+"""Registering custom host kernels — the counterpart of the reference's
+``examples/numba_cuda_example.py`` / ``numba_cuda_callable_example.py``
+for native CPU kernels (C++ XLA-FFI or Numba-cfunc FFI).
 
-Three routes, lowest to highest level:
+Two routes:
 
   1. **C++ XLA-FFI** (``load_cpp_inline``): annotate exports with
      ``// @BE``, get content-hash-cached ``.so`` + registered FFI
@@ -16,12 +14,11 @@ Three routes, lowest to highest level:
      ``kernel(*inputs, *outputs)`` CPU function compiled to a cfunc and
      dispatched through the registered FFI trampoline — no host
      callback (reference ``brainevent/_op/numba_ffi.py:997``).
-  3. **A full multi-backend primitive** (``XLACustomKernel``): register
-     a ``jax_raw`` reference implementation plus a Pallas TPU kernel;
-     grad/vmap/jit come from the registered rules. On CPU the Pallas
-     kernel runs in interpret mode automatically.
 
-Run from the project root (CPU or TPU):
+A full multi-backend primitive registers a ``jax_raw`` kernel with
+``XLACustomKernel.def_jax_kernel`` (see ``docs/howto/custom-operators.md``).
+
+Run from the project root:
     python examples/custom_kernel.py
 """
 
@@ -77,53 +74,6 @@ def demo_numba_ffi():
     print('Numba FFI ewma:    ', np.asarray(y))
 
 
-def demo_pallas_primitive():
-    from jax.experimental import pallas as pl
-    from brainevent_tpu.ops.core import XLACustomKernel
-    from brainevent_tpu.ops.pallas_utils import interpret_mode
-
-    # the op: y = relu(x) @ w  (toy fused activation-matmul)
-    def _jax_kernel(**params):
-        def kernel(x, w):
-            return (jnp.maximum(x, 0.0) @ w,)
-        return kernel
-
-    def _pallas_kernel(*, shape, **params):
-        def body(x_ref, w_ref, o_ref):
-            o_ref[...] = jnp.maximum(x_ref[...], 0.0) @ w_ref[...]
-
-        def kernel(x, w):
-            return (pl.pallas_call(
-                body,
-                out_shape=jax.ShapeDtypeStruct((x.shape[0], w.shape[1]),
-                                               x.dtype),
-                interpret=interpret_mode(),
-            )(x, w),)
-        return kernel
-
-    relu_mm_p = XLACustomKernel('example_relu_mm',
-                                doc='fused relu-matmul example')
-    relu_mm_p.def_jax_kernel(_jax_kernel, asdefault=True)
-    relu_mm_p.def_pallas_kernel(_pallas_kernel)
-    relu_mm_p.def_tags('example')
-
-    x = jnp.asarray(np.random.default_rng(0).normal(size=(8, 128)),
-                    jnp.float32)
-    w = jnp.asarray(np.random.default_rng(1).normal(size=(128, 128)),
-                    jnp.float32)
-    (y_ref,) = relu_mm_p(x, w, outs=[jax.ShapeDtypeStruct((8, 128),
-                                                          jnp.float32)],
-                         backend='jax_raw', shape=x.shape)
-    (y_pl,) = relu_mm_p(x, w, outs=[jax.ShapeDtypeStruct((8, 128),
-                                                         jnp.float32)],
-                        backend='pallas', shape=x.shape)
-    np.testing.assert_allclose(np.asarray(y_pl), np.asarray(y_ref),
-                               rtol=1e-5)
-    print('Pallas primitive:   backends agree, max =',
-          float(jnp.max(y_pl)))
-
-
 if __name__ == '__main__':
     demo_cpp_ffi()
     demo_numba_ffi()
-    demo_pallas_primitive()

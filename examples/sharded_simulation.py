@@ -1,9 +1,9 @@
 # Copyright 2026 The brainevent-tpu Authors.
 # Licensed under the Apache License, Version 2.0.
 #
-# Multi-chip EI-network simulation over a jax.sharding.Mesh (TPU-native
-# extension; the reference is single-GPU). Without TPU hardware, run on a
-# virtual CPU mesh:
+# Multi-device EI-network simulation over a jax.sharding.Mesh (an
+# extension; the reference is single-GPU). On one host with several GPUs it
+# uses every card; without a GPU, run on a virtual CPU mesh:
 #
 #   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
 #   python examples/sharded_simulation.py
@@ -22,12 +22,12 @@ from brainevent_tpu.parallel import ShardedEINet, neuron_mesh
 
 def main():
     n_dev = len(jax.devices())
-    on_tpu = jax.devices()[0].platform != 'cpu'
+    on_gpu = jax.devices()[0].platform == 'gpu'
     mesh = neuron_mesh(n_dev)
-    per_dev = 4096 if on_tpu else 512       # CPU: smoke-scale
+    per_dev = 4096 if on_gpu else 512       # CPU: smoke-scale
     net = ShardedEINet(mesh=mesh, num=per_dev * n_dev, n_conn=80)
     state = net.init_state()
-    n_steps = 1000 if on_tpu else 100
+    n_steps = 1000 if on_gpu else 100
 
     run = jax.jit(lambda s: net.run(n_steps, state=s))
     jax.block_until_ready(run(state))      # compile + warm

@@ -2,13 +2,12 @@
 # Licensed under the Apache License, Version 2.0.
 #
 # Surrogate-gradient SNN training on fixed-number recurrent
-# connectivity (BASELINE.md acceptance workload). The recurrent product
-# triple runs on blocked one-hot MXU gather plans (rate-independent;
-# binary forward, float cotangents — the surrogate-linear contract of
-# the reference's binary primitives,
-# /root/reference/brainevent/_csr/binary.py:656). At the 10M-synapse
-# scale pass model.consts() as an explicit jit argument (see
-# models/training.py): 28.2 ms/sim-step fwd+bwd measured on a v5e.
+# connectivity (BASELINE.md acceptance workload). The recurrent ELL
+# product is one custom VJP (models/training.py): binary forward, float
+# cotangents — the surrogate-linear contract of the reference's binary
+# primitives (brainevent/_csr/binary.py:656).
+#
+# Run: python examples/surrogate_training.py
 
 import os
 import sys
@@ -25,8 +24,8 @@ from brainevent_tpu.models.training import SurrogateSNN, snn_loss, train_step
 
 
 def main():
-    on_tpu = jax.devices()[0].platform != 'cpu'
-    n_hidden = 2000 if on_tpu else 400      # CPU: smoke-scale
+    on_gpu = jax.devices()[0].platform == 'gpu'
+    n_hidden = 2000 if on_gpu else 400      # CPU: smoke-scale
     model = SurrogateSNN(n_in=40, n_hidden=n_hidden, n_out=4, n_conn=32,
                          seed=1)
     params = model.init_params()

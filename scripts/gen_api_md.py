@@ -1,5 +1,5 @@
 # Regenerate docs/api.md: every public name of brainevent_tpu (plus the
-# parallel / models / training / mxu_gather / pallas-kernel surfaces),
+# parallel / models / training / scatter surfaces),
 # grouped by kind, with call signatures, first docstring lines,
 # per-class method tables, and per-primitive backend availability.
 import inspect
@@ -11,16 +11,13 @@ HEADER = """# API reference (generated)
 
 Every public name of `brainevent_tpu` (and the `brainevent` drop-in
 alias), grouped by kind, plus the `parallel`, `models`,
-`models.training`, `ops.mxu_gather`, `ops.scatter` and
-`jitc.pallas_kernels` surfaces. Regenerate with
+`models.training` and `ops.scatter` surfaces. Regenerate with
 `python scripts/gen_api_md.py`.
 
 Primitives marked `[prim]` are `XLACustomKernel` instances
 (multi-backend, jit/grad/vmap-capable); their available backends per
-platform are listed inline (`alias->b` means the registration is an
-annotated alias of backend `b`, carrying a measurement or design note —
-see `ops/core.py`). Functions show their call signature; classes list
-their public methods.
+platform are listed inline. Functions show their call signature; classes
+list their public methods.
 """
 
 
@@ -42,16 +39,10 @@ def sig_of(obj):
 def prim_backends(p):
     """Render a primitive's per-platform backend table in one line."""
     parts = []
-    for plat in ('tpu', 'cpu', 'gpu'):
-        try:
-            info = p.backend_info(plat)
-        except Exception:
-            continue
-        if not info:
-            continue
-        rend = [f'{e["backend"]}->alias({e["alias_of"]})' if e['alias_of']
-                else e['backend'] for e in info]
-        parts.append(f'{plat}: {", ".join(rend)}')
+    for plat in ('cpu', 'gpu'):
+        backends = p.available_backends(plat)
+        if backends:
+            parts.append(f'{plat}: {", ".join(backends)}')
     return '; '.join(parts)
 
 
@@ -124,8 +115,7 @@ lines += rows(be, prims)
 lines.append('\n## Error taxonomy\n')
 lines += rows(be, errors)
 
-for path in ('parallel', 'models', 'models.training', 'ops.mxu_gather',
-             'ops.scatter', 'jitc.pallas_kernels'):
+for path in ('parallel', 'models', 'models.training', 'ops.scatter'):
     mod = be
     try:
         for part in path.split('.'):
@@ -148,8 +138,8 @@ print('wrote docs/api.md,', len(lines), 'lines')
 # ---------------------------------------------------------------------------
 # Per-module API pages (docs/api/<module>.md): the same rows, split by the
 # subpackage each top-level name is defined in, so every package has its
-# own reference page (reference parity: the Sphinx per-module apidoc tree,
-# /root/reference/docs/apis/).
+# own reference page (reference parity: the reference's Sphinx per-module
+# apidoc tree, docs/apis/).
 # ---------------------------------------------------------------------------
 import os
 
@@ -164,9 +154,9 @@ MODULE_PAGES = {
     'fcn': 'Fixed-number (ELL) connectivity classes and primitives.',
     'jitc': 'Just-in-time regenerated (implicit) connectivity: three '
             'weight families sharing one walk engine.',
-    'rng': 'Pallas-compatible counter/LFSR RNGs.',
+    'rng': 'Counter-based and LFSR RNGs in pure uint32 JAX.',
     'ops': 'Operator dispatch core, benchmark harness, numba/C++ '
-           'bridges, MXU gather plans and scatter engines.',
+           'bridges and the event scatter-add.',
     'config': 'Global configuration knobs.',
     '_error': 'Error taxonomy.',
     '_misc': 'Index conversion helpers.',
@@ -234,8 +224,8 @@ for key in sorted(by_mod):
     print('wrote', fname)
 
 # submodule surfaces get their own pages too
-for path in ('parallel', 'models', 'models.training', 'ops.mxu_gather',
-             'ops.scatter', 'jitc.pallas_kernels', 'ops.cpp'):
+for path in ('parallel', 'models', 'models.training', 'ops.scatter',
+             'ops.cpp'):
     try:
         mod = __import__(f'brainevent_tpu.{path}',
                          fromlist=[path.split('.')[-1]])

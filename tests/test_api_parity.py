@@ -20,8 +20,7 @@ REFERENCE_ALL = [
     'binary_csrmm', 'binary_csrmm_p', 'binary_csrmm_indexed', 'binary_csrmm_indexed_p',
     'csrmv', 'csrmv_p', 'csrmm', 'csrmm_p',
     'csrmv_dt2t', 'cscmv_dt2t', 'csrmv_dt2t_p', 'csrmm_dt2t',
-    'cscmm_dt2t', 'csrmm_dt2t_p', 'HybridConfig', 'get_hybrid_config',
-    'init_csr_config', 'update_csr_on_binary_pre', 'update_csr_on_binary_pre_p', 'update_csr_on_binary_post',
+    'cscmm_dt2t', 'csrmm_dt2t_p', 'update_csr_on_binary_pre', 'update_csr_on_binary_pre_p', 'update_csr_on_binary_post',
     'update_csr_on_binary_post_p', 'update_csc_on_binary_pre', 'update_csc_on_binary_post', 'csr_slice_rows',
     'csr_slice_rows_p', 'Dense', 'binary_densemv', 'binary_densemv_p',
     'binary_densemm', 'binary_densemm_p', 'update_dense_on_binary_pre', 'update_dense_on_binary_pre_p',
@@ -70,30 +69,31 @@ def test_alias_module_has_them_too():
     assert not missing, f'missing from alias module: {missing}'
 
 
-def test_every_primitive_has_pallas_and_jax_raw_on_tpu():
-    """The reference ships 25 TPU registrations of 45 primitives; here every
-    primitive must offer both a pallas and a jax_raw backend on TPU."""
+def test_every_primitive_has_jax_raw_on_cpu_and_gpu():
+    """Every library primitive offers its XLA kernel on both platforms."""
     # ignore throwaway primitives registered by other test modules
     reg = {n: p for n, p in be.get_registry().items()
-           if not n.startswith(('test_', 'probe_', 'tpu_', 'my_'))}
+           if not n.startswith(('test_', 'probe_', 'my_'))}
     assert len(reg) >= 45
     missing = {
-        name: prim.available_backends('tpu')
+        name: (prim.available_backends('cpu'), prim.available_backends('gpu'))
         for name, prim in reg.items()
-        if 'pallas' not in prim.available_backends('tpu')
-        or 'jax_raw' not in prim.available_backends('tpu')
+        if 'jax_raw' not in prim.available_backends('cpu')
+        or 'jax_raw' not in prim.available_backends('gpu')
     }
-    assert not missing, f'primitives lacking TPU backends: {missing}'
+    assert not missing, f'primitives lacking an XLA kernel: {missing}'
 
 
-def test_pallas_backend_selectable_for_encoders(rng=None):
-    import numpy as np
-    import jax.numpy as jnp
+def test_unregistered_backend_is_an_actionable_error():
+    """A backend name that is not registered raises, naming the ones that
+    are (e.g. code written for a removed accelerator-specific kernel)."""
     from brainevent_tpu.events import binary_2d_csr_row_count_p_call
     x = jnp.asarray(np.random.default_rng(0).random((16, 10)) < 0.3)
-    (a,) = binary_2d_csr_row_count_p_call(x, backend='pallas')
+    with pytest.raises(be.KernelNotAvailableError, match='jax_raw'):
+        binary_2d_csr_row_count_p_call(x, backend='pallas')
     (b,) = binary_2d_csr_row_count_p_call(x, backend='jax_raw')
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    np.testing.assert_array_equal(np.asarray(b),
+                                  np.asarray(x).sum(axis=1))
 
 
 class TestDropInUsage:

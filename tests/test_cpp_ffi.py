@@ -149,7 +149,7 @@ void broken(const BE::Tensor& x, BE::Tensor& out) { this is not C++ }
 
 class TestCudaParityStubs:
     def test_load_cuda_raises_with_guidance(self):
-        with pytest.raises(CUDANotInstalledError, match='Pallas'):
+        with pytest.raises(CUDANotInstalledError, match='def_jax_kernel'):
             load_cuda_inline('__global__ void k() {}', name='x')
 
     def test_backend_stubs(self):

@@ -1,8 +1,9 @@
 # Copyright 2026 The brainevent-tpu Authors.
 # Licensed under the Apache License, Version 2.0.
 
-"""CSR package tests: every backend against a dense NumPy oracle, plus
-grad/vmap/jit sweeps (mirrors reference ``brainevent/_csr/*_test.py``)."""
+"""CSR package tests: eager and jitted dispatch against a dense NumPy
+oracle, plus grad/vmap/jit sweeps (mirrors reference
+``brainevent/_csr/*_test.py``)."""
 
 import jax
 import jax.numpy as jnp
@@ -17,10 +18,16 @@ from brainevent_tpu.csr import (
     update_csr_on_binary_pre, update_csr_on_binary_post,
     update_csc_on_binary_pre, update_csc_on_binary_post,
     csr_slice_rows, csr_diag_position, csr_diag_add, csr_solve,
-    HybridConfig, get_hybrid_config,
 )
 
-BACKENDS = ['jax_raw', 'pallas']
+# eager dispatch (the primitive's impl) and lowering inside jax.jit
+MODES = ['eager', 'jit']
+
+
+def run(mode, fn, *args, **kwargs):
+    if mode == 'jit':
+        return jax.jit(lambda *a: fn(*a, **kwargs))(*args)
+    return fn(*args, **kwargs)
 
 
 def make_csr(rng, m=40, k=50, conn=0.2, homo=False):
@@ -40,14 +47,14 @@ def make_csr(rng, m=40, k=50, conn=0.2, homo=False):
 
 
 class TestFloatOps:
-    @pytest.mark.parametrize('backend', BACKENDS)
+    @pytest.mark.parametrize('mode', MODES)
     @pytest.mark.parametrize('transpose', [False, True])
     @pytest.mark.parametrize('homo', [False, True])
-    def test_csrmv(self, rng, backend, transpose, homo):
+    def test_csrmv(self, rng, mode, transpose, homo):
         data, indices, indptr, dense, shape = make_csr(rng, homo=homo)
         v = rng.normal(size=shape[0] if transpose else shape[1]).astype(np.float32)
-        out = csrmv(data, indices, indptr, jnp.asarray(v), shape=shape,
-                    transpose=transpose, backend=backend)
+        out = run(mode, csrmv, data, indices, indptr, jnp.asarray(v),
+                  shape=shape, transpose=transpose)
         want = dense.T @ v if transpose else dense @ v
         np.testing.assert_allclose(np.asarray(out), want, rtol=2e-4, atol=1e-4)
 
@@ -95,16 +102,16 @@ class TestFloatOps:
 
 
 class TestBinaryOps:
-    @pytest.mark.parametrize('backend', BACKENDS)
+    @pytest.mark.parametrize('mode', MODES)
     @pytest.mark.parametrize('transpose', [False, True])
     @pytest.mark.parametrize('homo', [False, True])
     @pytest.mark.parametrize('bool_event', [True, False])
-    def test_binary_csrmv(self, rng, backend, transpose, homo, bool_event):
+    def test_binary_csrmv(self, rng, mode, transpose, homo, bool_event):
         data, indices, indptr, dense, shape = make_csr(rng, homo=homo)
         spk = rng.random(shape[0] if transpose else shape[1]) < 0.2
         v = spk if bool_event else spk.astype(np.float32) * 1.5
-        out = binary_csrmv(data, indices, indptr, jnp.asarray(v), shape=shape,
-                           transpose=transpose, backend=backend)
+        out = run(mode, binary_csrmv, data, indices, indptr, jnp.asarray(v),
+                  shape=shape, transpose=transpose)
         gate = spk.astype(np.float32)  # events gate (not multiply) in csr ops
         want = dense.T @ gate if transpose else dense @ gate
         np.testing.assert_allclose(np.asarray(out), want, rtol=2e-4, atol=1e-4)
@@ -202,14 +209,14 @@ class TestDt2t:
 
 
 class TestPlasticity:
-    @pytest.mark.parametrize('backend', BACKENDS)
-    def test_on_pre(self, rng, backend):
+    @pytest.mark.parametrize('mode', MODES)
+    def test_on_pre(self, rng, mode):
         data, indices, indptr, dense, shape = make_csr(rng)
         spk = rng.random(shape[0]) < 0.3
         trace = rng.normal(size=shape[1]).astype(np.float32)
-        out = update_csr_on_binary_pre(
-            data, indices, indptr, jnp.asarray(spk), jnp.asarray(trace),
-            shape=shape, backend=backend)
+        out = run(mode, update_csr_on_binary_pre,
+                  data, indices, indptr, jnp.asarray(spk), jnp.asarray(trace),
+                  shape=shape)
         rows, cols = be.csr_to_coo_index(indptr, indices)
         want = np.asarray(data) + spk[np.asarray(rows)] * trace[np.asarray(cols)]
         np.testing.assert_allclose(np.asarray(out), want, rtol=1e-5)
@@ -406,44 +413,10 @@ class TestCSRClass:
                                    dense + want_delta, rtol=1e-5)
 
 
-class TestHybridConfig:
-    def test_defaults_and_validate(self):
-        cfg = get_hybrid_config()
-        assert isinstance(cfg, HybridConfig)
-        with pytest.raises(ValueError):
-            from brainevent_tpu.csr.block_config import validate_config
-            validate_config(HybridConfig(block_size=7))
-
-    def test_save_and_reload(self, tmp_path, monkeypatch):
-        import brainevent_tpu.csr.block_config as bc
-        monkeypatch.setenv('BRAINEVENT_CSR_HYBRID_CONFIG',
-                           str(tmp_path / 'cfg.json'))
-        monkeypatch.setattr(bc, '_cached', None)
-        p = bc.save_hybrid_config(HybridConfig(block_size=128))
-        assert p.exists()
-        monkeypatch.setattr(bc, '_cached', None)
-        cfg = bc.get_hybrid_config()
-        assert cfg.block_size == 128
-
-
-class TestAutoTuner:
-    @pytest.mark.slow
-    def test_init_csr_config_smoke(self, tmp_path, monkeypatch):
-        import brainevent_tpu.csr.block_config as bc
-        monkeypatch.setenv('BRAINEVENT_CSR_HYBRID_CONFIG',
-                           str(tmp_path / 'cfg.json'))
-        monkeypatch.setattr(bc, '_cached', None)
-        from brainevent_tpu.csr.initialize import init_csr_config
-        cfg = init_csr_config(ns=(256,), rates=(0.05,), conn_per_row=12,
-                              verbose=False, iterations=4)
-        assert cfg.mxu_scatter_limit >= 0
-        assert (tmp_path / 'cfg.json').exists()
-
-
-class TestMXUFloatRoute:
-    """The blocked one-hot MXU float route (VERDICT r2 item 3): lazy plan
-    cache on the class, both directions, measured 18x over the XLA scatter
-    at (10k,10k,1%) on the v5e (scripts/tpu_mxu_gather2.py)."""
+class TestClassFloatProducts:
+    """The CSR/CSC class ``@`` float products against the dense oracle:
+    both directions, jitted over traced data, across a pytree round trip,
+    after ``with_data``, and under ``jax.grad``."""
 
     def _mk(self, rng, m=300, k=400, conn=0.05):
         nse = int(m * k * conn)
@@ -456,117 +429,82 @@ class TestMXUFloatRoute:
                     jnp.asarray(indptr, dtype=jnp.int32)), shape=(m, k))
         return A
 
-    def test_matvec_matches_xla_both_directions(self, rng):
+    def test_matvec_both_directions(self, rng):
         A = self._mk(rng)
-        v = jnp.asarray(rng.normal(size=A.shape[1]).astype(np.float32))
-        u = jnp.asarray(rng.normal(size=A.shape[0]).astype(np.float32))
-        slow_f = A @ v
-        slow_t = u @ A
-        A.build_mxu_plan()
-        assert getattr(A, '_mxu_plans', None) is not None
-        np.testing.assert_allclose(np.asarray(A @ v), np.asarray(slow_f),
-                                   rtol=1e-4, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(u @ A), np.asarray(slow_t),
-                                   rtol=1e-4, atol=1e-5)
+        dense = np.asarray(A.todense(), np.float64)
+        v = rng.normal(size=A.shape[1]).astype(np.float32)
+        u = rng.normal(size=A.shape[0]).astype(np.float32)
+        np.testing.assert_allclose(np.asarray(A @ jnp.asarray(v)), dense @ v,
+                                   rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(np.asarray(jnp.asarray(u) @ A), u @ dense,
+                                   rtol=1e-4, atol=1e-4)
 
     def test_csc_route(self, rng):
         A = self._mk(rng)
         C = A.tocsc()
-        v = jnp.asarray(rng.normal(size=A.shape[1]).astype(np.float32))
-        slow = C @ v
-        C.build_mxu_plan()
-        np.testing.assert_allclose(np.asarray(C @ v), np.asarray(slow),
-                                   rtol=1e-4, atol=1e-5)
+        v = rng.normal(size=A.shape[1]).astype(np.float32)
+        np.testing.assert_allclose(
+            np.asarray(C @ jnp.asarray(v)),
+            np.asarray(A.todense(), np.float64) @ v, rtol=1e-4, atol=1e-4)
 
-    def test_cache_dropped_across_tree_roundtrip(self, rng):
-        A = self._mk(rng).build_mxu_plan()
+    def test_tree_roundtrip_products(self, rng):
+        A = self._mk(rng)
         leaves, td = jax.tree_util.tree_flatten(A)
         A2 = jax.tree_util.tree_unflatten(td, leaves)
-        assert getattr(A2, '_mxu_plans', None) is None  # falls back safely
-
-    def test_grads_through_closure_constant(self, rng):
-        A = self._mk(rng).build_mxu_plan()
         v = jnp.asarray(rng.normal(size=A.shape[1]).astype(np.float32))
-        ct = jnp.asarray(rng.normal(size=A.shape[0]).astype(np.float32))
-        g_fast = jax.grad(lambda x: jnp.vdot(A @ x, ct))(v)
-        A_slow = self._mk(np.random.default_rng(20260816))
-        g_slow = jax.grad(lambda x: jnp.vdot(A_slow @ x, ct))(v)
-        np.testing.assert_allclose(np.asarray(g_fast), np.asarray(g_slow),
-                                   rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(np.asarray(A2 @ v), np.asarray(A @ v),
+                                   rtol=1e-6, atol=1e-6)
 
-    def test_build_with_traced_data_succeeds_and_falls_back(self, rng):
-        # plans are structure-only since r4: traced DATA no longer blocks
-        # the build, and the product with a traced-data instance falls
-        # back to the exact XLA primitive (AD w.r.t. data on its rules)
+    def test_matmat_both_directions(self, rng):
+        A = self._mk(rng)
+        dense = np.asarray(A.todense(), np.float64)
+        B = rng.normal(size=(A.shape[1], 5)).astype(np.float32)
+        Bt = rng.normal(size=(3, A.shape[0])).astype(np.float32)
+        np.testing.assert_allclose(np.asarray(A @ jnp.asarray(B)), dense @ B,
+                                   rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(np.asarray(jnp.asarray(Bt) @ A),
+                                   Bt @ dense, rtol=1e-4, atol=1e-4)
+
+    def test_traced_data_under_jit(self, rng):
         A = self._mk(rng)
         v = jnp.asarray(rng.normal(size=A.shape[1]).astype(np.float32))
-        expect = A @ v
+        expect = np.asarray(A.todense(), np.float64) @ np.asarray(v)
 
         def f(d):
-            B = be.CSR((d, A.indices, A.indptr), shape=A.shape)
-            B.build_mxu_plan()
-            assert B._mxu_weight_views(B._mxu_plans) is None
-            return B @ v
+            return be.CSR((d, A.indices, A.indptr), shape=A.shape) @ v
 
-        np.testing.assert_allclose(
-            np.asarray(jax.jit(f)(A.data)), np.asarray(expect),
-            rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(np.asarray(jax.jit(f)(A.data)), expect,
+                                   rtol=1e-4, atol=1e-4)
 
-    def test_with_data_carries_plans_not_views(self, rng):
-        A = self._mk(rng).build_mxu_plan()
+    def test_with_data_scales_product(self, rng):
+        A = self._mk(rng)
         v = jnp.asarray(rng.normal(size=A.shape[1]).astype(np.float32))
-        _ = A @ v                      # materializes the weight views
-        assert getattr(A, '_mxu_wviews', None) is not None
         B = A.with_data(A.data * 2.0)
-        assert getattr(B, '_mxu_plans', None) is A._mxu_plans
-        assert getattr(B, '_mxu_wviews', None) is None
         np.testing.assert_allclose(np.asarray(B @ v), 2 * np.asarray(A @ v),
                                    rtol=1e-4, atol=1e-4)
 
-    def test_grad_wrt_vector_rides_plan_pair(self, rng):
-        # VERDICT r3 item 2: jax.grad through `A @ v` uses the cached
-        # plan pair via custom VJP — oracle equality vs the XLA route
-        A = self._mk(rng).build_mxu_plan()
-        A_slow = self._mk(np.random.default_rng(20260816))
+    def test_grad_wrt_vector_matches_dense(self, rng):
+        A = self._mk(rng)
+        dense = np.asarray(A.todense(), np.float64)
         v = jnp.asarray(rng.normal(size=A.shape[1]).astype(np.float32))
         u = jnp.asarray(rng.normal(size=A.shape[0]).astype(np.float32))
-        g_fast = jax.grad(lambda x: jnp.vdot(A @ x, u))(v)
-        g_slow = jax.grad(lambda x: jnp.vdot(A_slow @ x, u))(v)
-        np.testing.assert_allclose(np.asarray(g_fast), np.asarray(g_slow),
+        g = jax.grad(lambda x: jnp.vdot(A @ x, u))(v)
+        np.testing.assert_allclose(np.asarray(g), np.asarray(u) @ dense,
                                    rtol=1e-4, atol=1e-4)
-        # transpose direction: grad of u @ A w.r.t. u
-        g_fast_t = jax.grad(lambda x: jnp.vdot(x @ A, v))(u)
-        g_slow_t = jax.grad(lambda x: jnp.vdot(x @ A_slow, v))(u)
-        np.testing.assert_allclose(np.asarray(g_fast_t),
-                                   np.asarray(g_slow_t),
+        g_t = jax.grad(lambda x: jnp.vdot(x @ A, v))(u)
+        np.testing.assert_allclose(np.asarray(g_t), dense @ np.asarray(v),
                                    rtol=1e-4, atol=1e-4)
 
-    def test_auto_build_gating(self, rng):
-        from brainevent_tpu import config as cfg
-        A = self._mk(rng)
+    def test_grad_wrt_data_matches_dense(self, rng):
+        A = self._mk(rng, m=60, k=80, conn=0.1)
         v = jnp.asarray(rng.normal(size=A.shape[1]).astype(np.float32))
-        before_mode = cfg.get_auto_mxu_plan()
-        before_nse = cfg.get_mxu_plan_min_nse()
-        try:
-            # forced on (any platform), threshold below nse -> auto-builds
-            cfg.set_auto_mxu_plan(True)
-            cfg.set_mxu_plan_min_nse(1)
-            slow = self._mk(np.random.default_rng(20260816)) @ v
-            out = A @ v
-            assert getattr(A, '_mxu_plans', None) is not None
-            np.testing.assert_allclose(np.asarray(out), np.asarray(slow),
-                                       rtol=1e-4, atol=1e-5)
-            # threshold above nse -> no auto-build
-            B = self._mk(rng)
-            cfg.set_mxu_plan_min_nse(A.nse + 1)
-            _ = B @ v
-            assert getattr(B, '_mxu_plans', None) is None
-            # off -> never
-            cfg.set_auto_mxu_plan(False)
-            cfg.set_mxu_plan_min_nse(1)
-            C = self._mk(rng)
-            _ = C @ v
-            assert getattr(C, '_mxu_plans', None) is None
-        finally:
-            cfg.set_auto_mxu_plan(before_mode)
-            cfg.set_mxu_plan_min_nse(before_nse)
+        u = rng.normal(size=A.shape[0]).astype(np.float32)
+
+        def loss(d):
+            return jnp.vdot(be.CSR((d, A.indices, A.indptr),
+                                   shape=A.shape) @ v, jnp.asarray(u))
+
+        rows, cols = be.csr_to_coo_index(A.indptr, A.indices)
+        want = u[np.asarray(rows)] * np.asarray(v)[np.asarray(cols)]
+        np.testing.assert_allclose(np.asarray(jax.grad(loss)(A.data)), want,
+                                   rtol=1e-4, atol=1e-5)

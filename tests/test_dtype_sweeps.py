@@ -19,8 +19,7 @@ Mirrors the reference's per-package dtype matrices (weight dtype x index
 dtype x transpose x homo/hetero x backend against a dense oracle — e.g.
 ``brainevent/_csr/main_test.py``, ``brainevent/_misc.py:196-270``): f32 /
 bf16 / f64-under-x64 weights, int32 / int64-under-x64 indices, bool / float
-events. Backends sweep ``real_backends`` only (aliases would time the same
-kernel twice — see ``ops/core.py``)."""
+events. Backends sweep ``available_backends`` (every registered kernel)."""
 
 import contextlib
 
@@ -90,7 +89,7 @@ class TestCsrDtypeSweep:
             n_in = 12 if transpose else 16
             spk = rng.random(n_in) < 0.4
             want = (dense.T if transpose else dense) @ spk
-            for backend in be.csr.binary.binary_csrmv_p.real_backends('cpu'):
+            for backend in be.csr.binary.binary_csrmv_p.available_backends('cpu'):
                 got = be.binary_csrmv(w, indices, indptr, jnp.asarray(spk),
                                       shape=(12, 16), transpose=transpose,
                                       backend=backend)
@@ -191,7 +190,7 @@ class TestFcnDtypeSweep:
             n_in = n_pre if transpose else n_post
             spk = rng.random(n_in) < 0.4
             want = (dense.T if transpose else dense) @ spk
-            for backend in be.fcn.binary.binary_fcnmv_p.real_backends('cpu'):
+            for backend in be.fcn.binary.binary_fcnmv_p.available_backends('cpu'):
                 got = be.binary_fcnmv(w, indices, jnp.asarray(spk),
                                       shape=(n_pre, n_post),
                                       transpose=transpose, backend=backend)
@@ -237,7 +236,7 @@ class TestDenseDtypeSweep:
                               else spk_b.astype(np.float32))
             wd = np.asarray(w, dtype=np.float64)
             want = (wd.T if transpose else wd) @ spk_b
-            for backend in be.dense.binary.binary_densemv_p.real_backends('cpu'):
+            for backend in be.dense.binary.binary_densemv_p.available_backends('cpu'):
                 got = be.binary_densemv(w, spk, transpose=transpose,
                                         backend=backend)
                 assert got.dtype == wdtype
@@ -254,7 +253,7 @@ class TestDenseDtypeSweep:
             S_b = rng.random((n_in, 3)) < 0.4
             wd = np.asarray(w, dtype=np.float64)
             want = (wd.T if transpose else wd) @ S_b
-            for backend in be.dense.binary.binary_densemm_p.real_backends('cpu'):
+            for backend in be.dense.binary.binary_densemm_p.available_backends('cpu'):
                 got = be.binary_densemm(w, jnp.asarray(S_b),
                                         transpose=transpose, backend=backend)
                 np.testing.assert_allclose(
@@ -377,7 +376,7 @@ class TestFloatEventGating:
         s = jnp.asarray([0.5, -1.0, 0.0, 2.0, -0.1, 0.0, 3.0, -4.0],
                         jnp.float32)
         want = np.asarray(w)[:, np.asarray(s) > 0].sum(axis=1)
-        for backend in be.dense.binary.binary_densemv_p.real_backends('cpu'):
+        for backend in be.dense.binary.binary_densemv_p.available_backends('cpu'):
             got = be.binary_densemv(w, s, transpose=False, backend=backend)
             np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5,
                                        atol=1e-6, err_msg=backend)
@@ -387,7 +386,7 @@ class TestFloatEventGating:
             rng, 10, 8, jnp.float32, jnp.int32, homo=False)
         s = jnp.asarray(rng.normal(size=8), jnp.float32)
         want = dense @ (np.asarray(s) > 0)
-        for backend in be.csr.binary.binary_csrmv_p.real_backends('cpu'):
+        for backend in be.csr.binary.binary_csrmv_p.available_backends('cpu'):
             got = be.binary_csrmv(w, indices, indptr, s, shape=(10, 8),
                                   transpose=False, backend=backend)
             np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5,
@@ -403,7 +402,7 @@ class TestFloatEventGating:
             for j in range(K):
                 dense[i, idx_np[i, j]] += float(w[i, j])
         want = dense.T @ (np.asarray(s) > 0)
-        for backend in be.fcn.binary.binary_fcnmv_p.real_backends('cpu'):
+        for backend in be.fcn.binary.binary_fcnmv_p.available_backends('cpu'):
             got = be.binary_fcnmv(w, jnp.asarray(idx_np, jnp.int32), s,
                                   shape=(n_pre, n_post), transpose=True,
                                   backend=backend)
@@ -413,7 +412,7 @@ class TestFloatEventGating:
 
 class TestBf16Weights:
     """bfloat16 weight paths: outputs follow the weight dtype and match
-    the f32 reference within bf16 tolerance (TPU-native storage mode)."""
+    the f32 reference within bf16 tolerance (half-width weight storage)."""
 
     @pytest.mark.parametrize('transpose', [False, True])
     def test_binary_fcnmv_bf16(self, rng, transpose):

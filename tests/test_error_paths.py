@@ -19,7 +19,6 @@ _HIERARCHY = [
     ('KernelNotAvailableError', 'KernelError'),
     ('KernelCompilationError', 'KernelError'),
     ('CompilationError', 'KernelCompilationError'),
-    ('MosaicCompilationError', 'CompilationError'),
     ('HostCompilerIncompatibleError', 'CompilationError'),
     ('KernelFallbackExhaustedError', 'KernelError'),
     ('KernelExecutionError', 'KernelError'),
@@ -62,25 +61,18 @@ def test_dispatch_error_lists_backends():
 
 
 def test_cuda_stub_guidance():
-    """CUDA-only paths raise with Pallas guidance, not AttributeError."""
+    """CUDA-only paths raise with guidance, not AttributeError."""
     with pytest.raises(be.CUDANotInstalledError):
         be.numba_cuda_kernel(lambda: None, outs=[])
     with pytest.raises(be.CUDANotInstalledError):
         be.load_cuda_inline('// @BE f\nvoid f() {}', 'm')
 
 
-def test_mxu_plan_traced_structure_raises():
-    from brainevent_tpu.csr.main import CSR
-    import jax
-
-    def f(idx):
-        csr = CSR((jnp.asarray([1.0]), idx,
-                   jnp.asarray([0, 1], jnp.int32)), shape=(1, 2))
-        csr.build_mxu_plan()
-        return idx
-
-    with pytest.raises(be.UnsupportedOperationError):
-        jax.jit(f)(jnp.asarray([0], jnp.int32))
+def test_gpu_device_info_without_gpu_raises():
+    # measurements never fall back to the CPU: no GPU is an error
+    from brainevent_tpu.ops import gpu_device_info
+    with pytest.raises(RuntimeError, match='no GPU'):
+        gpu_device_info()
 
 
 def test_benchmark_without_data_fn():

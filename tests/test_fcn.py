@@ -268,9 +268,10 @@ class TestClasses:
                                    rtol=1e-6)
 
 
-class TestFcnMxuPlanRoute:
-    """The cached blocked one-hot MXU route for float mv must match the
-    XLA kernels in every direction and compose with units."""
+class TestFcnClassProducts:
+    """The class ``@`` float products, both ELL orientations and both
+    directions, against the densified matrix — eager, jitted over traced
+    structure or data, and under ``jax.grad``."""
 
     def _pair(self, rng, n_pre=100, n_post=130, K=8):
         from brainevent_tpu.fcn.main import FixedNumPerPre, FixedNumPerPost
@@ -282,84 +283,63 @@ class TestFcnMxuPlanRoute:
         post = FixedNumPerPost((d2, idx2), shape=(n_pre, n_post))
         return pre, post
 
+    def _check_both_directions(self, m, rng):
+        dense = np.asarray(m.todense(), np.float64)
+        v = rng.normal(size=m.shape[1]).astype(np.float32)
+        u = rng.normal(size=m.shape[0]).astype(np.float32)
+        np.testing.assert_allclose(np.asarray(m @ jnp.asarray(v)), dense @ v,
+                                   rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(np.asarray(jnp.asarray(u) @ m), u @ dense,
+                                   rtol=2e-4, atol=2e-4)
+
     def test_perpre_both_directions(self, rng):
         pre, _ = self._pair(rng)
-        v = jnp.asarray(rng.normal(size=pre.shape[1]), jnp.float32)
-        u = jnp.asarray(rng.normal(size=pre.shape[0]), jnp.float32)
-        slow_mv = pre @ v
-        slow_rv = u @ pre
-        pre.build_mxu_plan()
-        np.testing.assert_allclose(np.asarray(pre @ v), np.asarray(slow_mv),
-                                   rtol=2e-4, atol=2e-4)
-        np.testing.assert_allclose(np.asarray(u @ pre), np.asarray(slow_rv),
-                                   rtol=2e-4, atol=2e-4)
+        self._check_both_directions(pre, rng)
 
     def test_perpost_both_directions(self, rng):
         _, post = self._pair(rng)
-        v = jnp.asarray(rng.normal(size=post.shape[1]), jnp.float32)
-        u = jnp.asarray(rng.normal(size=post.shape[0]), jnp.float32)
-        slow_mv = post @ v
-        slow_rv = u @ post
-        post.build_mxu_plan()
-        np.testing.assert_allclose(np.asarray(post @ v),
-                                   np.asarray(slow_mv), rtol=2e-4,
-                                   atol=2e-4)
-        np.testing.assert_allclose(np.asarray(u @ post),
-                                   np.asarray(slow_rv), rtol=2e-4,
-                                   atol=2e-4)
+        self._check_both_directions(post, rng)
 
     def test_homogeneous_data(self, rng):
         from brainevent_tpu.fcn.main import FixedNumPerPre
         idx = jnp.asarray(rng.integers(0, 96, (64, 4)), jnp.int32)
         m = FixedNumPerPre((jnp.asarray([0.5], jnp.float32), idx),
                            shape=(64, 96))
-        v = jnp.asarray(rng.normal(size=96), jnp.float32)
-        slow = m @ v
-        m.build_mxu_plan()
-        np.testing.assert_allclose(np.asarray(m @ v), np.asarray(slow),
-                                   rtol=2e-4, atol=2e-4)
+        self._check_both_directions(m, rng)
 
-    def test_build_with_traced_structure_raises(self, rng):
-        import brainevent_tpu as be
+    def test_traced_structure_under_jit(self, rng):
         from brainevent_tpu.fcn.main import FixedNumPerPre
-        d = jnp.ones((16, 2), jnp.float32)
+        d = jnp.asarray(rng.normal(size=(16, 2)), jnp.float32)
+        idx = jnp.asarray(rng.integers(0, 32, (16, 2)), jnp.int32)
+        v = jnp.asarray(rng.normal(size=32), jnp.float32)
+        expect = np.asarray(FixedNumPerPre((d, idx), shape=(16, 32))
+                            .todense()) @ np.asarray(v)
+        got = jax.jit(lambda i: FixedNumPerPre((d, i), shape=(16, 32)) @ v)(
+            idx)
+        np.testing.assert_allclose(np.asarray(got), expect, rtol=2e-4,
+                                   atol=2e-4)
 
-        def f(idx):
-            m = FixedNumPerPre((d, idx), shape=(16, 32))
-            m.build_mxu_plan()
-            return m.data
-
-        with pytest.raises(be.UnsupportedOperationError):
-            jax.jit(f)(jnp.zeros((16, 2), jnp.int32))
-
-    def test_build_with_traced_data_falls_back(self, rng):
+    def test_traced_data_under_jit(self, rng):
         from brainevent_tpu.fcn.main import FixedNumPerPre
         idx = jnp.asarray(rng.integers(0, 32, (16, 2)), jnp.int32)
         m0 = FixedNumPerPre(
             (jnp.asarray(rng.normal(size=(16, 2)), jnp.float32), idx),
             shape=(16, 32))
         v = jnp.asarray(rng.normal(size=32), jnp.float32)
-        expect = m0 @ v
-
-        def f(d):
-            m = FixedNumPerPre((d, idx), shape=(16, 32))
-            m.build_mxu_plan()          # traced data no longer blocks it
-            assert m._mxu_weight_views(m._mxu_plans) is None
-            return m @ v
-
-        np.testing.assert_allclose(np.asarray(jax.jit(f)(m0.data)),
-                                   np.asarray(expect),
+        expect = np.asarray(m0.todense()) @ np.asarray(v)
+        got = jax.jit(lambda d: FixedNumPerPre((d, idx), shape=(16, 32))
+                      @ v)(m0.data)
+        np.testing.assert_allclose(np.asarray(got), expect,
                                    rtol=2e-4, atol=2e-4)
 
-    def test_grad_wrt_vector_rides_plan_pair(self, rng):
+    def test_grad_wrt_vector_matches_dense(self, rng):
         from brainevent_tpu.fcn.main import FixedNumPerPre
         idx = jnp.asarray(rng.integers(0, 96, (64, 4)), jnp.int32)
         d = jnp.asarray(rng.normal(size=(64, 4)), jnp.float32)
-        fast = FixedNumPerPre((d, idx), shape=(64, 96)).build_mxu_plan()
-        slow = FixedNumPerPre((d, idx), shape=(64, 96))
+        m = FixedNumPerPre((d, idx), shape=(64, 96))
         v = jnp.asarray(rng.normal(size=96), jnp.float32)
-        u = jnp.asarray(rng.normal(size=64), jnp.float32)
-        g_fast = jax.grad(lambda x: jnp.vdot(fast @ x, u))(v)
-        g_slow = jax.grad(lambda x: jnp.vdot(slow @ x, u))(v)
-        np.testing.assert_allclose(np.asarray(g_fast), np.asarray(g_slow),
+        u = rng.normal(size=64).astype(np.float32)
+        g = jax.grad(lambda x: jnp.vdot(m @ x, jnp.asarray(u)))(v)
+        np.testing.assert_allclose(np.asarray(g),
+                                   u @ np.asarray(m.todense()),
                                    rtol=2e-4, atol=2e-4)

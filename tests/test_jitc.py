@@ -395,11 +395,27 @@ class TestDt2tPrimitive:
         assert out.shape == (0,)
 
 
-class TestPallasSlotScan:
-    """The Mosaic slot-scan mv kernels (``jitc/pallas_kernels.py``) must
-    sample the identical matrix as the XLA walk engine — the stream
-    layout is the data contract (reference ``brainevent/_misc.py:37-74``);
-    only f32 summation order may differ."""
+class TestWalkAgainstDense:
+    """The XLA walk engine behind every JITC product must sample the same
+    matrix as the materializer: each product equals the materialized
+    matrix times the operand (only f32 summation order may differ), and
+    the materializer equals the separately collected CSR form. The
+    transposed product of ``(corder)`` is ``M.T`` of the ``(not corder)``
+    matrix (transpose and corder flip together)."""
+
+    _DENSE = {jitsmv: be.jits, jitnmv: be.jitn, jitumv: be.jitu,
+              jitsmm: be.jits, jitnmm: be.jitn, jitumm: be.jitu}
+
+    @staticmethod
+    def _matrix(dense_fn, params, shape, transpose=False, corder=True,
+                matrix_mode='mv', prob=PROB):
+        if transpose:
+            return np.asarray(dense_fn(
+                *params, prob, SEED, shape=shape, corder=not corder,
+                matrix_mode=matrix_mode), np.float64).T
+        return np.asarray(dense_fn(*params, prob, SEED, shape=shape,
+                                   corder=corder, matrix_mode=matrix_mode),
+                          np.float64)
 
     @pytest.mark.parametrize('fn,params', [
         (jitsmv, (1.5,)),
@@ -408,65 +424,61 @@ class TestPallasSlotScan:
     ])
     @pytest.mark.parametrize('corder', [True, False])
     @pytest.mark.parametrize('transpose', [False, True])
-    def test_mv_backend_conformance(self, fn, params, corder, transpose,
-                                    rng):
+    def test_mv_matches_todense(self, fn, params, corder, transpose, rng):
         shape = (57, 83)
         in_len = shape[0] if transpose else shape[1]
-        v = jnp.asarray(rng.normal(size=in_len), jnp.float32)
-        a1 = fn(*params, PROB, v, SEED, shape=shape, transpose=transpose,
-                corder=corder, backend='jax_raw')
-        a2 = fn(*params, PROB, v, SEED, shape=shape, transpose=transpose,
-                corder=corder, backend='pallas')
-        np.testing.assert_allclose(np.asarray(a1), np.asarray(a2),
+        v = rng.normal(size=in_len).astype(np.float32)
+        got = fn(*params, PROB, jnp.asarray(v), SEED, shape=shape,
+                 transpose=transpose, corder=corder)
+        want = self._matrix(self._DENSE[fn], params, shape, transpose,
+                            corder) @ v
+        np.testing.assert_allclose(np.asarray(got), want,
                                    rtol=2e-5, atol=2e-5)
 
     @pytest.mark.parametrize('corder', [True, False])
-    def test_binary_mv_backend_conformance(self, corder, rng):
+    def test_binary_mv_matches_todense(self, corder, rng):
         from brainevent_tpu.jitc import binary_jitnmv
         shape = (64, 50)
-        v = jnp.asarray(rng.random(shape[1]) < 0.3)
-        a1 = binary_jitnmv(0.5, 0.2, PROB, v, SEED, shape=shape,
-                           corder=corder, backend='jax_raw')
-        a2 = binary_jitnmv(0.5, 0.2, PROB, v, SEED, shape=shape,
-                           corder=corder, backend='pallas')
-        np.testing.assert_allclose(np.asarray(a1), np.asarray(a2),
+        spk = rng.random(shape[1]) < 0.3
+        got = binary_jitnmv(0.5, 0.2, PROB, jnp.asarray(spk), SEED,
+                            shape=shape, corder=corder)
+        want = self._matrix(be.jitn, (0.5, 0.2), shape, corder=corder) @ spk
+        np.testing.assert_allclose(np.asarray(got), want,
                                    rtol=2e-5, atol=2e-5)
 
     def test_non_divisible_rows_and_cols(self, rng):
-        # rows not a multiple of the 256-row grid block; cols not a
-        # multiple of the 32-lane stride or the 4-chunk layout
+        # cols not a multiple of the 32-lane stride or the chunk layout
         shape = (301, 261)
-        v = jnp.asarray(rng.normal(size=shape[1]), jnp.float32)
-        a1 = jitnmv(0.5, 0.2, PROB, v, SEED, shape=shape, backend='jax_raw')
-        a2 = jitnmv(0.5, 0.2, PROB, v, SEED, shape=shape, backend='pallas')
-        np.testing.assert_allclose(np.asarray(a1), np.asarray(a2),
+        v = rng.normal(size=shape[1]).astype(np.float32)
+        got = jitnmv(0.5, 0.2, PROB, jnp.asarray(v), SEED, shape=shape)
+        want = self._matrix(be.jitn, (0.5, 0.2), shape) @ v
+        np.testing.assert_allclose(np.asarray(got), want,
                                    rtol=2e-5, atol=2e-5)
 
-    @pytest.mark.parametrize('fn,params', [
-        (be.jits, (1.5,)),
-        (be.jitn, (0.5, 0.2)),
-        (be.jitu, (0.1, 0.9)),
+    @pytest.mark.parametrize('fn,params,to_csr', [
+        (be.jits, (1.5,), be.jits_to_csr),
+        (be.jitn, (0.5, 0.2), be.jitn_to_csr),
+        (be.jitu, (0.1, 0.9), be.jitu_to_csr),
     ])
     @pytest.mark.parametrize('corder', [True, False])
     @pytest.mark.parametrize('transpose', [False, True])
-    def test_todense_backend_conformance(self, fn, params, corder,
-                                         transpose):
-        # materialize is exact (a plain store of the same weight draws):
-        # the tolerance is 0, not a summation-order epsilon
+    def test_todense_matches_csr(self, fn, params, to_csr, corder,
+                                 transpose):
+        # materialize is exact (a plain store of the same weight draws);
+        # transpose=True materializes the walk over the swapped shape
         shape = (57, 83)
-        a1 = fn(*params, PROB, SEED, shape=shape, transpose=transpose,
-                corder=corder, backend='jax_raw')
-        a2 = fn(*params, PROB, SEED, shape=shape, transpose=transpose,
-                corder=corder, backend='pallas')
-        np.testing.assert_array_equal(np.asarray(a1), np.asarray(a2))
+        walked = (shape[1], shape[0]) if transpose else shape
+        got = fn(*params, PROB, SEED, shape=shape, transpose=transpose,
+                 corder=corder)
+        want = to_csr(*params, PROB, SEED, shape=walked,
+                      corder=corder).todense()
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
     def test_todense_non_divisible(self):
-        # rows over the 256-row grid block; cols straddling chunk padding
-        a1 = be.jitn(0.5, 0.2, PROB, SEED, shape=(301, 261),
-                     backend='jax_raw')
-        a2 = be.jitn(0.5, 0.2, PROB, SEED, shape=(301, 261),
-                     backend='pallas')
-        np.testing.assert_array_equal(np.asarray(a1), np.asarray(a2))
+        got = be.jitn(0.5, 0.2, PROB, SEED, shape=(301, 261))
+        want = be.jitn_to_csr(0.5, 0.2, PROB, SEED,
+                              shape=(301, 261)).todense()
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
     @pytest.mark.parametrize('fn,params', [
         (jitsmm, (1.5,)),
@@ -475,41 +487,35 @@ class TestPallasSlotScan:
     ])
     @pytest.mark.parametrize('corder', [True, False])
     @pytest.mark.parametrize('transpose', [False, True])
-    def test_mm_backend_conformance(self, fn, params, corder, transpose,
-                                    rng):
-        # batched slot scan vs the XLA walk on the stride-32 'mv' layout
-        # (the classes' @ route); n_batch=5 exercises the pad-to-8 path
+    def test_mm_mv_mode_matches_todense(self, fn, params, corder, transpose,
+                                        rng):
+        # stride-32 'mv' layout (the classes' @ route); n_batch=5
         shape = (57, 83)
         in_len = shape[0] if transpose else shape[1]
-        B = jnp.asarray(rng.normal(size=(in_len, 5)), jnp.float32)
-        a1 = fn(*params, PROB, B, SEED, shape=shape, transpose=transpose,
-                corder=corder, matrix_mode='mv', backend='jax_raw')
-        a2 = fn(*params, PROB, B, SEED, shape=shape, transpose=transpose,
-                corder=corder, matrix_mode='mv', backend='pallas')
-        np.testing.assert_allclose(np.asarray(a1), np.asarray(a2),
+        B = rng.normal(size=(in_len, 5)).astype(np.float32)
+        got = fn(*params, PROB, jnp.asarray(B), SEED, shape=shape,
+                 transpose=transpose, corder=corder, matrix_mode='mv')
+        want = self._matrix(self._DENSE[fn], params, shape, transpose,
+                            corder) @ B
+        np.testing.assert_allclose(np.asarray(got), want,
                                    rtol=2e-5, atol=2e-5)
 
-    def test_mm_wide_batch_chunks(self, rng):
-        # n_batch=19 -> three 8-column kernel invocations (pad tail)
-        B = jnp.asarray(rng.normal(size=(SHAPE[1], 19)), jnp.float32)
-        a1 = jitnmm(0.5, 0.2, PROB, B, SEED, shape=SHAPE,
-                    matrix_mode='mv', backend='jax_raw')
-        a2 = jitnmm(0.5, 0.2, PROB, B, SEED, shape=SHAPE,
-                    matrix_mode='mv', backend='pallas')
-        np.testing.assert_allclose(np.asarray(a1), np.asarray(a2),
+    def test_mm_wide_batch(self, rng):
+        B = rng.normal(size=(SHAPE[1], 19)).astype(np.float32)
+        got = jitnmm(0.5, 0.2, PROB, jnp.asarray(B), SEED, shape=SHAPE,
+                     matrix_mode='mv')
+        want = self._matrix(be.jitn, (0.5, 0.2), SHAPE) @ B
+        np.testing.assert_allclose(np.asarray(got), want,
                                    rtol=2e-5, atol=2e-5)
 
     @pytest.mark.parametrize('corder', [True, False])
-    def test_binary_mm_backend_conformance(self, corder, rng):
+    def test_binary_mm_mv_mode_matches_todense(self, corder, rng):
         from brainevent_tpu.jitc import binary_jitnmm
-        B = jnp.asarray(rng.random((SHAPE[1], 6)) < 0.3)
-        a1 = binary_jitnmm(0.5, 0.2, PROB, B, SEED, shape=SHAPE,
-                           corder=corder, matrix_mode='mv',
-                           backend='jax_raw')
-        a2 = binary_jitnmm(0.5, 0.2, PROB, B, SEED, shape=SHAPE,
-                           corder=corder, matrix_mode='mv',
-                           backend='pallas')
-        np.testing.assert_allclose(np.asarray(a1), np.asarray(a2),
+        B = rng.random((SHAPE[1], 6)) < 0.3
+        got = binary_jitnmm(0.5, 0.2, PROB, jnp.asarray(B), SEED,
+                            shape=SHAPE, corder=corder, matrix_mode='mv')
+        want = self._matrix(be.jitn, (0.5, 0.2), SHAPE, corder=corder) @ B
+        np.testing.assert_allclose(np.asarray(got), want,
                                    rtol=2e-5, atol=2e-5)
 
     @pytest.mark.parametrize('fn,params', [
@@ -519,94 +525,73 @@ class TestPallasSlotScan:
     ])
     @pytest.mark.parametrize('corder', [True, False])
     @pytest.mark.parametrize('transpose', [False, True])
-    def test_mm_stride4_backend_conformance(self, fn, params, corder,
-                                            transpose, rng):
-        # matrix_mode='mm' (stride-4 walk): the row-packed-lane slot scan
-        # must sample the identical matrix as the XLA engine
+    def test_mm_stride4_matches_todense(self, fn, params, corder,
+                                        transpose, rng):
+        # matrix_mode='mm' (stride-4 walk) against the mm-mode matrix
         shape = (57, 83)
         in_len = shape[0] if transpose else shape[1]
-        B = jnp.asarray(rng.normal(size=(in_len, 5)), jnp.float32)
-        a1 = fn(*params, PROB, B, SEED, shape=shape, transpose=transpose,
-                corder=corder, matrix_mode='mm', backend='jax_raw')
-        a2 = fn(*params, PROB, B, SEED, shape=shape, transpose=transpose,
-                corder=corder, matrix_mode='mm', backend='pallas')
-        np.testing.assert_allclose(np.asarray(a1), np.asarray(a2),
+        B = rng.normal(size=(in_len, 5)).astype(np.float32)
+        got = fn(*params, PROB, jnp.asarray(B), SEED, shape=shape,
+                 transpose=transpose, corder=corder, matrix_mode='mm')
+        want = self._matrix(self._DENSE[fn], params, shape, transpose,
+                            corder, matrix_mode='mm') @ B
+        np.testing.assert_allclose(np.asarray(got), want,
                                    rtol=2e-5, atol=2e-5)
 
     @pytest.mark.parametrize('corder', [True, False])
     @pytest.mark.parametrize('transpose', [False, True])
-    def test_todense_mm_stride4_conformance(self, corder, transpose):
-        # mm-layout materialize is a plain store of the same draws:
-        # bit-exact vs the engine walk
-        a1 = be.jitn(0.5, 0.2, PROB, SEED, shape=(57, 83),
-                     transpose=transpose, corder=corder, matrix_mode='mm',
-                     backend='jax_raw')
-        a2 = be.jitn(0.5, 0.2, PROB, SEED, shape=(57, 83),
-                     transpose=transpose, corder=corder, matrix_mode='mm',
-                     backend='pallas')
-        np.testing.assert_array_equal(np.asarray(a1), np.asarray(a2))
+    def test_todense_mm_stride4_matches_csr(self, corder, transpose):
+        shape = (57, 83)
+        walked = (shape[1], shape[0]) if transpose else shape
+        got = be.jitn(0.5, 0.2, PROB, SEED, shape=shape,
+                      transpose=transpose, corder=corder, matrix_mode='mm')
+        want = be.jitn_to_csr(0.5, 0.2, PROB, SEED, shape=walked,
+                              corder=corder, matrix_mode='mm').todense()
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
     def test_mm_stride4_non_divisible(self, rng):
-        # rows over the 256-row grid block; cols straddling the stride-4
-        # chunk padding; batch 19 -> three 8-column kernel calls
         shape = (301, 261)
-        B = jnp.asarray(rng.normal(size=(shape[1], 19)), jnp.float32)
-        a1 = jitnmm(0.5, 0.2, PROB, B, SEED, shape=shape,
-                    matrix_mode='mm', backend='jax_raw')
-        a2 = jitnmm(0.5, 0.2, PROB, B, SEED, shape=shape,
-                    matrix_mode='mm', backend='pallas')
-        np.testing.assert_allclose(np.asarray(a1), np.asarray(a2),
+        B = rng.normal(size=(shape[1], 19)).astype(np.float32)
+        got = jitnmm(0.5, 0.2, PROB, jnp.asarray(B), SEED, shape=shape,
+                     matrix_mode='mm')
+        want = self._matrix(be.jitn, (0.5, 0.2), shape,
+                            matrix_mode='mm') @ B
+        np.testing.assert_allclose(np.asarray(got), want,
                                    rtol=2e-5, atol=2e-5)
 
     @pytest.mark.parametrize('corder', [True, False])
-    def test_binary_mm_stride4_conformance(self, corder, rng):
+    def test_binary_mm_stride4_matches_todense(self, corder, rng):
         from brainevent_tpu.jitc import binary_jitnmm
-        B = jnp.asarray(rng.random((SHAPE[1], 6)) < 0.3)
-        a1 = binary_jitnmm(0.5, 0.2, PROB, B, SEED, shape=SHAPE,
-                           corder=corder, matrix_mode='mm',
-                           backend='jax_raw')
-        a2 = binary_jitnmm(0.5, 0.2, PROB, B, SEED, shape=SHAPE,
-                           corder=corder, matrix_mode='mm',
-                           backend='pallas')
-        np.testing.assert_allclose(np.asarray(a1), np.asarray(a2),
+        B = rng.random((SHAPE[1], 6)) < 0.3
+        got = binary_jitnmm(0.5, 0.2, PROB, jnp.asarray(B), SEED,
+                            shape=SHAPE, corder=corder, matrix_mode='mm')
+        want = self._matrix(be.jitn, (0.5, 0.2), SHAPE, corder=corder,
+                            matrix_mode='mm') @ B
+        np.testing.assert_allclose(np.asarray(got), want,
                                    rtol=2e-5, atol=2e-5)
 
-    def test_mm_stride4_plan_setup_route(self, rng):
-        # kernel-level plan route: a hoisted walk_plan_setup_mm must
-        # produce the identical product as the internally-computed setup
+    def test_walk_plan_setup_is_the_walk_setup(self):
+        # the plan primitives' hoisted setup is the engine's own stream
+        # initialization, reshaped to (rows, n_chunks * stride)
         from brainevent_tpu._misc import (_initialize_conn_length,
                                           _normalize_chunk_size)
-        from brainevent_tpu.jitc.pallas_kernels import (
-            jitc_matmat_pallas_mm, walk_plan_setup_mm)
-        from brainevent_tpu.jitc.normal import _normal_weight
-
+        from brainevent_tpu.jitc import engine
         shape = (57, 83)
-        B = jnp.asarray(rng.normal(size=(shape[1], 3)), jnp.float32)
         clen = _initialize_conn_length(PROB)
         chunk = _normalize_chunk_size(shape[1], None)
-        setup = walk_plan_setup_mm(SEED, clen, shape[0], shape[1], chunk)
-        a1 = jitc_matmat_pallas_mm(
-            _normal_weight, 2,
-            (jnp.float32(0.5), jnp.float32(0.2)), SEED, clen, B, shape[0],
-            corder=True, logical_cols=shape[1])
-        a2 = jitc_matmat_pallas_mm(
-            _normal_weight, 2,
-            (jnp.float32(0.5), jnp.float32(0.2)), SEED, clen, B, shape[0],
-            corder=True, logical_cols=shape[1], setup=setup)
-        np.testing.assert_allclose(np.asarray(a1), np.asarray(a2),
-                                   rtol=1e-6, atol=1e-6)
-        # a plan built for the wrong orientation is rejected, not
-        # silently mis-sampled
-        bad = walk_plan_setup_mm(SEED, clen, shape[1], shape[0], chunk)
-        with pytest.raises(ValueError, match='walk plan setup shape'):
-            jitc_matmat_pallas_mm(
-                _normal_weight, 2,
-                (jnp.float32(0.5), jnp.float32(0.2)), SEED, clen, B,
-                shape[0], corder=True, logical_cols=shape[1], setup=bad)
+        state2, q2, cl = engine.walk_plan_setup(SEED, clen, shape[0],
+                                                shape[1], 32, chunk)
+        _, _, _, state, q, cl0 = engine.walk_setup(SEED, clen, shape[0],
+                                                   shape[1], 32, chunk)
+        n_chunks = -(-shape[1] // chunk)
+        assert state2.shape == q2.shape == (shape[0], n_chunks * 32)
+        np.testing.assert_array_equal(np.asarray(state2),
+                                      np.asarray(state).reshape(state2.shape))
+        np.testing.assert_array_equal(np.asarray(q2),
+                                      np.asarray(q).reshape(q2.shape))
+        assert int(cl) == int(cl0)
 
-    def test_x64_falls_back_to_engine(self, rng):
-        # float64 output -> the kernel generator must decline and the
-        # XLA engine produce identical results to the jax_raw backend
+    def test_x64_matches_todense(self, rng):
         import contextlib
 
         @contextlib.contextmanager
@@ -619,75 +604,76 @@ class TestPallasSlotScan:
                 jax.config.update('jax_enable_x64', old)
 
         with x64_enabled():
-            v = jnp.asarray(rng.normal(size=SHAPE[1]), jnp.float64)
-            a1 = jitnmv(np.float64(0.5), np.float64(0.2), PROB, v, SEED,
-                        shape=SHAPE, backend='jax_raw')
-            a2 = jitnmv(np.float64(0.5), np.float64(0.2), PROB, v, SEED,
-                        shape=SHAPE, backend='pallas')
-            np.testing.assert_allclose(np.asarray(a1), np.asarray(a2),
+            v = rng.normal(size=SHAPE[1])
+            got = jitnmv(np.float64(0.5), np.float64(0.2), PROB,
+                         jnp.asarray(v, jnp.float64), SEED, shape=SHAPE)
+            dense = np.asarray(be.jitn(np.float64(0.5), np.float64(0.2),
+                                       PROB, SEED, shape=SHAPE))
+            assert np.asarray(got).dtype == np.float64
+            np.testing.assert_allclose(np.asarray(got), dense @ v,
                                        rtol=1e-12)
 
-    @pytest.mark.parametrize('backend', ['jax_raw', 'pallas'])
-    def test_grad_flows_through_backend(self, backend, rng):
-        # the JVP/transpose rules rebind with the same backend param; both
-        # routes must produce the same cotangents
-        v = jnp.asarray(rng.normal(size=SHAPE[1]), jnp.float32)
+    @pytest.mark.parametrize('transpose', [False, True])
+    def test_grad_matches_dense_formulation(self, transpose, rng):
+        # the JVP/transpose rules against jax.grad of materialize-then-dot
+        in_len = SHAPE[0] if transpose else SHAPE[1]
+        v = jnp.asarray(rng.normal(size=in_len), jnp.float32)
 
         def loss(args):
             loc, scale, vv = args
             return jnp.sum(jitnmv(loc, scale, PROB, vv, SEED, shape=SHAPE,
-                                  backend=backend) ** 2)
+                                  transpose=transpose) ** 2)
 
-        grads = jax.grad(loss)((jnp.float32(0.5), jnp.float32(0.2), v))
-        ref = jax.grad(lambda a: jnp.sum(jitnmv(
-            a[0], a[1], PROB, a[2], SEED, shape=SHAPE,
-            backend='jax_raw') ** 2))((jnp.float32(0.5), jnp.float32(0.2),
-                                       v))
-        for g, r in zip(grads, ref):
+        def loss_dense(args):
+            loc, scale, vv = args
+            if transpose:
+                m = be.jitn(loc, scale, PROB, SEED, shape=SHAPE,
+                            corder=False).T
+            else:
+                m = be.jitn(loc, scale, PROB, SEED, shape=SHAPE)
+            with jax.default_matmul_precision('highest'):
+                return jnp.sum((m @ vv) ** 2)
+
+        args = (jnp.float32(0.5), jnp.float32(0.2), v)
+        for g, r in zip(jax.grad(loss)(args), jax.grad(loss_dense)(args)):
             np.testing.assert_allclose(np.asarray(g), np.asarray(r),
                                        rtol=2e-4, atol=2e-5)
 
     def test_vmap_over_operand(self, rng):
         # vmap of mv reroutes to mm MODE (different matrix by contract,
-        # see TestAD.test_vmap_reroutes_to_mm_mode) — so assert the two
-        # backends agree THROUGH vmap rather than against per-row mv
-        V = jnp.asarray(rng.normal(size=(3, SHAPE[1])), jnp.float32)
-        out_p = jax.vmap(lambda vv: jitnmv(
-            0.5, 0.2, PROB, vv, SEED, shape=SHAPE, backend='pallas'))(V)
-        out_j = jax.vmap(lambda vv: jitnmv(
-            0.5, 0.2, PROB, vv, SEED, shape=SHAPE, backend='jax_raw'))(V)
-        np.testing.assert_allclose(np.asarray(out_p), np.asarray(out_j),
+        # see TestAD.test_vmap_reroutes_to_mm_mode)
+        V = rng.normal(size=(3, SHAPE[1])).astype(np.float32)
+        got = jax.vmap(lambda vv: jitnmv(
+            0.5, 0.2, PROB, vv, SEED, shape=SHAPE))(jnp.asarray(V))
+        want = V @ self._matrix(be.jitn, (0.5, 0.2), SHAPE,
+                                matrix_mode='mm').T
+        np.testing.assert_allclose(np.asarray(got), want,
                                    rtol=2e-5, atol=2e-5)
 
     def test_jit_composes(self, rng):
-        v = jnp.asarray(rng.normal(size=SHAPE[1]), jnp.float32)
+        v = rng.normal(size=SHAPE[1]).astype(np.float32)
         f = jax.jit(lambda vv: jitnmv(0.5, 0.2, PROB, vv, SEED,
-                                      shape=SHAPE, backend='pallas'))
-        np.testing.assert_allclose(
-            np.asarray(f(v)),
-            np.asarray(jitnmv(0.5, 0.2, PROB, v, SEED, shape=SHAPE,
-                              backend='jax_raw')),
-            rtol=2e-5, atol=2e-5)
+                                      shape=SHAPE))
+        want = self._matrix(be.jitn, (0.5, 0.2), SHAPE) @ v
+        np.testing.assert_allclose(np.asarray(f(jnp.asarray(v))), want,
+                                   rtol=2e-5, atol=2e-5)
 
     def test_wide_matrix_many_chunks(self, rng):
-        # wide logical cols -> chunk_size keyed on shape[1]; walk over a
-        # different width in the transpose direction must still conform
+        # wide logical cols -> chunk_size keyed on shape[1]
         shape = (48, 1030)
-        v = jnp.asarray(rng.normal(size=shape[1]), jnp.float32)
+        v = rng.normal(size=shape[1]).astype(np.float32)
         for corder in (True, False):
-            a1 = jitsmv(1.5, 0.05, v, SEED, shape=shape, corder=corder,
-                        backend='jax_raw')
-            a2 = jitsmv(1.5, 0.05, v, SEED, shape=shape, corder=corder,
-                        backend='pallas')
-            np.testing.assert_allclose(np.asarray(a1), np.asarray(a2),
+            got = jitsmv(1.5, 0.05, jnp.asarray(v), SEED, shape=shape,
+                         corder=corder)
+            want = self._matrix(be.jits, (1.5,), shape, corder=corder,
+                                prob=0.05) @ v
+            np.testing.assert_allclose(np.asarray(got), want,
                                        rtol=2e-5, atol=2e-5)
 
-    def test_prob_one_dense_limit(self, rng):
-        # clen ~= 2/prob = 2 -> every skip is >= 1; near-dense sampling
-        v = jnp.asarray(rng.normal(size=40), jnp.float32)
-        a1 = jitnmv(0.1, 0.3, 0.9, v, SEED, shape=(32, 40),
-                    backend='jax_raw')
-        a2 = jitnmv(0.1, 0.3, 0.9, v, SEED, shape=(32, 40),
-                    backend='pallas')
-        np.testing.assert_allclose(np.asarray(a1), np.asarray(a2),
+    def test_prob_near_one_dense_limit(self, rng):
+        # clen ~= 2/prob ~= 2 -> every skip is >= 1; near-dense sampling
+        v = rng.normal(size=40).astype(np.float32)
+        got = jitnmv(0.1, 0.3, 0.9, jnp.asarray(v), SEED, shape=(32, 40))
+        want = self._matrix(be.jitn, (0.1, 0.3), (32, 40), prob=0.9) @ v
+        np.testing.assert_allclose(np.asarray(got), want,
                                    rtol=2e-5, atol=2e-5)

@@ -1,14 +1,12 @@
 # Copyright 2026 The brainevent-tpu Authors.
 # Licensed under the Apache License, Version 2.0.
 
-"""Walk-plan primitive tests (TPU extension, no reference counterpart).
+"""Walk-plan primitive tests (an extension, no reference counterpart).
 
 ``jit*mv_plan`` / ``jit*mm_plan`` compute the SAME product as
-``jit*mv`` with the stationary-q stream setup hoisted out of the call
-(84% of the mv call at (2k, 2k) on v5e — BENCH_NOTES jitc walk-plan
-probe). The stream-equality contract is structural: the ``jax_raw``
-backend IGNORES the passed setup and recomputes it internally, so
-raw-vs-pallas sweeps prove the hoisted setup reproduces the walk."""
+``jit*mv`` with the stationary-q stream setup passed in as operands. The
+stream-equality contract is structural: the ``jax_raw`` backend ignores
+the passed setup and recomputes it internally."""
 
 import jax
 import jax.numpy as jnp
@@ -59,34 +57,40 @@ def test_plan_matches_unplanned_mv(tag, transpose, corder, rng):
 
 
 @pytest.mark.parametrize('tag', list(FAMILIES))
-@pytest.mark.parametrize('backend', ['jax_raw', 'pallas'])
-def test_plan_backend_sweep(tag, backend, rng):
-    """jax_raw recomputes the setup; pallas consumes the hoisted one —
-    agreement proves the plan reproduces the walk streams."""
+@pytest.mark.parametrize('mode', ['eager', 'jit'])
+def test_plan_dispatch_sweep(tag, mode, rng):
+    """The plan product eagerly and under jit equals the unplanned one."""
     fam, vals = FAMILIES[tag]
     seed = jnp.asarray([SEED], jnp.uint32)
     clen, s2, q2, cl = fam.build_plan_setup(PROB, seed, SHAPE)
     v = jnp.asarray(rng.normal(size=SHAPE[1]), jnp.float32)
     want = fam.mv_fn(*vals, PROB, v, SEED, shape=SHAPE)
-    got = fam.plan_mv_fn(*_params(vals), clen, v, seed, s2, q2, cl,
-                         shape=SHAPE, backend=backend)
+
+    def plan(vv):
+        return fam.plan_mv_fn(*_params(vals), clen, vv, seed, s2, q2, cl,
+                              shape=SHAPE)
+
+    got = jax.jit(plan)(v) if mode == 'jit' else plan(v)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize('backend', ['jax_raw', 'pallas'])
-def test_plan_mm_is_columnwise_mv(backend, rng):
+@pytest.mark.parametrize('mode', ['eager', 'jit'])
+def test_plan_mm_is_columnwise_mv(mode, rng):
     """Plan mm is mode-locked to the mv walk: each column sees the
     SAME mv-mode matrix."""
     fam, vals = FAMILIES['n']
     seed = jnp.asarray([SEED], jnp.uint32)
     clen, s2, q2, cl = fam.build_plan_setup(PROB, seed, SHAPE)
     B = jnp.asarray(rng.normal(size=(SHAPE[1], 5)), jnp.float32)
-    got = fam.plan_mm_fn(*_params(vals), clen, B, seed, s2, q2, cl,
-                         shape=SHAPE, backend=backend)
+    def plan_mm(b):
+        return fam.plan_mm_fn(*_params(vals), clen, b, seed, s2, q2, cl,
+                              shape=SHAPE)
+
+    got = jax.jit(plan_mm)(B) if mode == 'jit' else plan_mm(B)
     cols = jnp.stack([
         fam.plan_mv_fn(*_params(vals), clen, B[:, i], seed, s2, q2, cl,
-                       shape=SHAPE, backend='jax_raw')
+                       shape=SHAPE)
         for i in range(B.shape[1])], axis=1)
     np.testing.assert_allclose(np.asarray(got), np.asarray(cols),
                                rtol=1e-4, atol=1e-4)
@@ -273,7 +277,7 @@ class TestEventCompactedRoute:
                           transpose=True, corder=False)
         got = fam.plan_mv_fn(*_params(vals), clen, spk, seed, s2, q2, cl,
                              shape=SHAPE, transpose=True, corder=False,
-                             event=True, scan_rounds=6, backend='pallas')
+                             event=True, scan_rounds=6)
         np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                    rtol=1e-4, atol=1e-4)
 

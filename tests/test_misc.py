@@ -119,32 +119,12 @@ class TestCLI:
                      '--output', str(out)])
         assert code == 0 and out.exists()
 
-    @pytest.mark.slow
-    def test_tune_no_persist(self, tmp_path, capsys):
-        import json as _json
-        from brainevent_tpu import config as _cfg
+    def test_list_primitives_shows_cpu_and_gpu_kernels(self, capsys):
         from brainevent_tpu._cli import main
-        out = tmp_path / 'tuned.json'
-        before = _cfg.get_mxu_scatter_limit()
-        try:
-            code = main(['tune', '--sizes', '256', '--rates', '0.1',
-                         '--iterations', '1', '--no-persist',
-                         '--output', str(out)])
-        finally:
-            _cfg.set_mxu_scatter_limit(before)
-        assert code == 0 and out.exists()
-        assert 'Tuning on' in capsys.readouterr().out
-        cfg = _json.loads(out.read_text())
-        assert set(cfg) >= {'block_size', 'mxu_scatter_limit'}
-        # tiny grid: the winner is either 0 or the probed size
-        assert cfg['mxu_scatter_limit'] in (0, 256)
-
-    def test_tune_rejects_empty_sweep_lists(self):
-        # nargs='+': an unmeasured config must never be persisted
-        from brainevent_tpu._cli import main
-        for flag in ('--sizes', '--rates'):
-            with pytest.raises(SystemExit):
-                main(['tune', flag, '--no-persist'])
+        assert main(['list-primitives', '--data', 'fcn', 'binary']) == 0
+        out = capsys.readouterr().out
+        assert 'binary_fcnmv' in out
+        assert "backends={'cpu': [" in out and "'gpu': ['jax_raw']}" in out
 
 
 class TestNameScope:

@@ -378,58 +378,45 @@ class TestShardedModelExact:
         assert int(np.asarray(s_single.spike_count).sum()) > 0
 
 
-class TestShardedMegaPropagate:
-    """The mxu6 mega-kernel factorized for multi-chip (parallel/mega.py):
-    per-device partitioned-table one-hot scatter + psum_scatter must be
-    bitwise interchangeable with the event_scatter_add route AND
-    state-for-state exact vs the single-chip EINet (VERDICT r3 item 8)."""
+class TestShardedEINetVsEINet:
+    """``ShardedEINet.from_einet`` over 4 virtual devices against the
+    single-device ``EINet.run`` on the same table and initial state:
+    hit counts are exact integers in f32, so the runs agree exactly."""
 
-    def test_mega_bitwise_matches_scatter_route(self):
+    @pytest.mark.parametrize('scale,coba', [(0.25, True), (0.5, False),
+                                            (1.0, True), (2.0, False)])
+    def test_matches_single_device_run(self, scale, coba):
         import numpy as np
+        from brainevent_tpu.models import EINet
         from brainevent_tpu.parallel import ShardedEINet, neuron_mesh
+        net = EINet(scale=scale, coba=coba)
+        sharded = ShardedEINet.from_einet(net, neuron_mesh(4))
+        s0 = net.init_state()
+        want = jax.jit(lambda s: net.run(150, state=s))(s0)
+        got = jax.jit(lambda s: sharded.run(150, state=s))(
+            sharded.init_state_from(s0))
+        np.testing.assert_array_equal(np.asarray(got.spike_count),
+                                      np.asarray(want.spike_count))
+        for a, b in ((got.v, want.neurons.v), (got.g_e, want.g_e),
+                     (got.g_i, want.g_i)):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                       rtol=0, atol=1e-4)
+        assert int(np.asarray(want.spike_count).sum()) > 0
 
-        mesh = neuron_mesh(4)
-        net_s = ShardedEINet(mesh=mesh, num=512, n_conn=16,
-                             propagate='scatter', seed=3)
-        net_m = ShardedEINet(mesh=mesh, num=512, n_conn=16,
-                             propagate='mxu6', seed=3)
-        a = net_s.init_state()
-        b = net_m.init_state()
-        step_s = jax.jit(net_s.step_fn())
-        step_m = jax.jit(net_m.step_fn())
-        for i in range(15):
-            a = step_s(a, i * 0.1)
-            b = step_m(b, i * 0.1)
-        for name in ('v', 'g_e', 'g_i', 'spike_count'):
-            np.testing.assert_array_equal(
-                np.asarray(getattr(a, name)), np.asarray(getattr(b, name)),
-                err_msg=name)
-        assert int(np.asarray(a.spike_count).sum()) > 0
-
-    def test_mega_exact_under_fori_run(self):
-        # under one jitted fori_loop run (the production shape), against
-        # the scatter route — itself proven state-for-state exact vs the
-        # single-chip EINet in TestShardedModelExact
-        import numpy as np
+    def test_step_compiles_to_one_reduce_scatter_per_class(self):
+        import re
         from brainevent_tpu.parallel import ShardedEINet, neuron_mesh
+        net = ShardedEINet(mesh=neuron_mesh(4), num=512, n_conn=16)
+        hlo = jax.jit(net.step_fn()).lower(net.init_state(), 0.0).compile(
+            ).as_text()
+        assert len(re.findall(r'reduce-scatter\(', hlo)) == 2
+        for banned in ('all-gather(', 'all-reduce(', 'collective-permute('):
+            assert banned not in hlo, banned
 
-        mesh = neuron_mesh(4)
-        ref = ShardedEINet(mesh=mesh, num=512, n_conn=24,
-                           propagate='scatter', seed=9)
-        snet = ShardedEINet(mesh=mesh, num=512, n_conn=24,
-                            propagate='mxu6', seed=9)
-        ra = jax.jit(lambda s: ref.run(40, state=s))(ref.init_state())
-        rb = jax.jit(lambda s: snet.run(40, state=s))(snet.init_state())
-        np.testing.assert_array_equal(np.asarray(ra.v), np.asarray(rb.v))
-        np.testing.assert_array_equal(np.asarray(ra.spike_count),
-                                      np.asarray(rb.spike_count))
-
-    def test_mega_rejects_unaligned_shard(self):
+    def test_rejects_indivisible_num(self):
         from brainevent_tpu.parallel import ShardedEINet, neuron_mesh
-        mesh = neuron_mesh(4)
-        with pytest.raises(ValueError):
-            ShardedEINet(mesh=mesh, num=4 * 64, n_conn=8,
-                         propagate='mxu6')
+        with pytest.raises(ValueError, match='divisible'):
+            ShardedEINet(mesh=neuron_mesh(4), num=4 * 64 + 1, n_conn=8)
 
 
 class TestShardedJitc:
@@ -521,10 +508,8 @@ class TestShardedJitc:
 
 
 class TestDataParallelTraining:
-    """Data-parallel surrogate training over the mesh: consts + params
-    replicated, batch sharded one sample per device, grads pmean'd —
-    the production DP layout (models/training.py consts-as-arguments
-    API; ROADMAP round-3 item 4)."""
+    """Data-parallel surrogate training over the mesh: params replicated,
+    batch sharded one sample per device, grads pmean'd."""
 
     def test_dp_train_grad_matches_per_sample_mean(self, rng):
         from jax.sharding import PartitionSpec as P
@@ -534,26 +519,23 @@ class TestDataParallelTraining:
         mesh = neuron_mesh(8)
         model = SurrogateSNN(n_in=8, n_hidden=128, n_out=4, n_conn=4)
         params = model.init_params()
-        consts = model.consts()
         B, T = 8, 3
         xb = jnp.asarray(rng.normal(size=(B, T, 8)), jnp.float32)
         yb = jnp.asarray(rng.integers(0, 4, B), jnp.int32)
 
-        def local_grad(p, c, x_loc, y_loc):
-            g = jax.grad(lambda q: snn_loss(model, q, x_loc[0], y_loc[0],
-                                            consts=c))(p)
+        def local_grad(p, x_loc, y_loc):
+            g = jax.grad(lambda q: snn_loss(model, q, x_loc[0], y_loc[0]))(p)
             return jax.tree.map(lambda t: jax.lax.pmean(t, 'neurons'), g)
 
         dp_grad = jax.jit(jax.shard_map(
             local_grad, mesh=mesh,
-            in_specs=(P(), P(), P('neurons'), P('neurons')),
+            in_specs=(P(), P('neurons'), P('neurons')),
             out_specs=P(), check_vma=False))
-        g_dp = dp_grad(params, consts, xb, yb)
+        g_dp = dp_grad(params, xb, yb)
 
         g_ref = jax.tree.map(
             lambda *gs: sum(gs) / B,
-            *[jax.grad(lambda q: snn_loss(model, q, xb[i], yb[i],
-                                          consts=consts))(params)
+            *[jax.grad(lambda q: snn_loss(model, q, xb[i], yb[i]))(params)
               for i in range(B)])
         for name in ('w_in', 'w_rec', 'w_out'):
             np.testing.assert_allclose(

@@ -13,9 +13,8 @@
 # limitations under the License.
 # ==============================================================================
 
-"""Round-4 feature tests: mxu6 radix packing, the tiered event-route
-tail, sort-based compaction, the row-id cumsum formulation, and the new
-config knobs."""
+"""The tiered event-route tail, sort-based compaction, the row-id cumsum
+formulation, and the CSR/FCN class mat-mat products."""
 
 import jax
 import jax.numpy as jnp
@@ -23,59 +22,6 @@ import numpy as np
 import pytest
 
 import brainevent_tpu as be
-from brainevent_tpu import config as cfg
-
-
-class TestEncodeSlotsRadix:
-    """The radix remap must be a bijection on (block, lane) per class —
-    decode(encode(t)) recovers the target for every radix."""
-
-    @pytest.mark.parametrize('radix', [3, 6, 12])
-    @pytest.mark.parametrize('rpb', [12, 24, 384])
-    def test_roundtrip(self, radix, rpb):
-        from brainevent_tpu.models.pallas_sim import _encode_slots
-        if rpb % radix:
-            pytest.skip('radix must divide rpb')
-        r3p = rpb // 3
-        ch_n = radix // 3
-        rh = rpb // radix
-        rng = np.random.default_rng(radix * 100 + rpb)
-        n_rows, width = 64, 40
-        n_exc = 40
-        # partition-local targets in [0, rpb*128)
-        t = rng.integers(0, rpb * 128, (n_rows, width)).astype(np.int64)
-        t[rng.random((n_rows, width)) < 0.1] = -1
-        enc = _encode_slots(t, r3p, n_exc, radix=radix)
-        assert np.all(enc[t < 0] == -1)
-        e = enc[t >= 0].astype(np.int64)
-        lane = e & 127
-        rest = e >> 7
-        fld = rest & 3
-        col = rest >> 2
-        is_inh = (np.broadcast_to(np.arange(n_rows)[:, None],
-                                  t.shape)[t >= 0] >= n_exc)
-        colc = col - r3p * is_inh
-        ch = colc // rh
-        c = colc % rh
-        q = fld * ch_n + ch
-        hi = q * rh + c
-        back = (hi << 7) | lane
-        np.testing.assert_array_equal(back, t[t >= 0])
-        assert np.all(col < 2 * r3p) and np.all(fld < 3)
-
-    @pytest.mark.parametrize('num,rpb,expect', [
-        (400000, 384, 12), (200000, 384, 12),
-        (40000, 384, 3),        # clamped rpb=315: only 3 divides
-        (4000, 12, 12), (4000, 6, 6), (4000, 9, 3),
-    ])
-    def test_auto_radix(self, num, rpb, expect):
-        from brainevent_tpu.models.pallas_sim import _auto_radix
-        assert _auto_radix(num, rpb) == expect
-
-    def test_invalid_radix_raises(self):
-        from brainevent_tpu.models.pallas_sim import _encode_slots
-        with pytest.raises(ValueError):
-            _encode_slots(np.zeros((4, 4), np.int64), 128, 2, radix=5)
 
 
 class TestCompactIndicesSort:
@@ -141,46 +87,9 @@ class TestTieredEventTail:
                                    rtol=2e-4, atol=2e-4)
 
 
-class TestNewConfigKnobs:
-    def test_auto_mxu_plan_validation(self):
-        before = cfg.get_auto_mxu_plan()
-        try:
-            for mode in ('auto', True, False):
-                cfg.set_auto_mxu_plan(mode)
-                assert cfg.get_auto_mxu_plan() == mode
-            with pytest.raises(ValueError):
-                cfg.set_auto_mxu_plan('yes')
-        finally:
-            cfg.set_auto_mxu_plan(before)
-
-    def test_mxu_plan_min_nse_validation(self):
-        before = cfg.get_mxu_plan_min_nse()
-        try:
-            cfg.set_mxu_plan_min_nse(123)
-            assert cfg.get_mxu_plan_min_nse() == 123
-            with pytest.raises(ValueError):
-                cfg.set_mxu_plan_min_nse(-1)
-        finally:
-            cfg.set_mxu_plan_min_nse(before)
-
-
-class TestShardedMegaLayout:
-    def test_rejects_overdegree(self):
-        from brainevent_tpu.parallel.mega import MegaScatterLayout
-        # 300 excitatory sources all targeting neuron 0 -> per-class
-        # in-degree > 255 breaks the 8-bit packed-field exactness
-        conn = np.zeros((300, 1), np.int32)
-        with pytest.raises(ValueError):
-            MegaScatterLayout(conn, 300, 384)
-
-    def test_rejects_unaligned_num(self):
-        from brainevent_tpu.parallel.mega import MegaScatterLayout
-        with pytest.raises(ValueError):
-            MegaScatterLayout(np.zeros((100, 4), np.int32), 80, 100)
-
-
-class TestDenseMMRoute:
-    """Cached-dense mat-mat crossover (config.set_dense_mm_max_bytes)."""
+class TestClassMatmat:
+    """CSR/CSC 2-D class products in every direction against the dense
+    matrix, and gradients through them."""
 
     def _mk(self, rng, m=80, k=96):
         mask = rng.random((m, k)) < 0.2
@@ -193,90 +102,49 @@ class TestDenseMMRoute:
                       shape=(m, k))
 
     @pytest.mark.parametrize('direction', ['AB', 'xA', 'cscAB', 'cscxA'])
-    def test_matches_sparse_route(self, direction):
+    def test_matches_dense(self, direction):
         rng = np.random.default_rng(3)
         A = self._mk(rng)
-        Bm = jnp.asarray(rng.normal(size=(A.shape[1], 5)), jnp.float32)
-        X = jnp.asarray(rng.normal(size=(5, A.shape[0])), jnp.float32)
-        before_mode = cfg.get_auto_mxu_plan()
-        before_nse = cfg.get_mxu_plan_min_nse()
+        D = np.asarray(A.todense(), np.float64)
+        Bm = rng.normal(size=(A.shape[1], 5)).astype(np.float32)
+        X = rng.normal(size=(5, A.shape[0])).astype(np.float32)
         C = A.tocsc()
-        try:
-            def go():
-                if direction == 'AB':
-                    return A @ Bm
-                if direction == 'xA':
-                    return X @ A
-                if direction == 'cscAB':
-                    return C @ Bm
-                return X @ C
-            ref = go()                      # sparse route (gates off)
-            cfg.set_auto_mxu_plan(True)     # force on any platform
-            cfg.set_mxu_plan_min_nse(1)
-            fast = go()
-            assert getattr(A if 'csc' not in direction else C,
-                           '_mxu_dense', None) is not None
-            np.testing.assert_allclose(np.asarray(fast), np.asarray(ref),
-                                       rtol=1e-4, atol=1e-4)
-        finally:
-            cfg.set_auto_mxu_plan(before_mode)
-            cfg.set_mxu_plan_min_nse(before_nse)
+        M = C if 'csc' in direction else A
+        if direction.endswith('AB'):
+            got, want = M @ jnp.asarray(Bm), D @ Bm
+        else:
+            got, want = jnp.asarray(X) @ M, X @ D
+        np.testing.assert_allclose(np.asarray(got), want, rtol=1e-4,
+                                   atol=1e-4)
 
     def test_grad_wrt_operand(self):
         rng = np.random.default_rng(4)
         A = self._mk(rng)
         Bm = jnp.asarray(rng.normal(size=(A.shape[1], 4)), jnp.float32)
-        ct = jnp.asarray(rng.normal(size=(A.shape[0], 4)), jnp.float32)
-        before_mode = cfg.get_auto_mxu_plan()
-        before_nse = cfg.get_mxu_plan_min_nse()
-        try:
-            g_ref = jax.grad(
-                lambda b: jnp.vdot(A @ b, ct))(Bm)
-            cfg.set_auto_mxu_plan(True)
-            cfg.set_mxu_plan_min_nse(1)
-            g_fast = jax.grad(lambda b: jnp.vdot(A @ b, ct))(Bm)
-            np.testing.assert_allclose(np.asarray(g_fast),
-                                       np.asarray(g_ref),
-                                       rtol=1e-4, atol=1e-4)
-        finally:
-            cfg.set_auto_mxu_plan(before_mode)
-            cfg.set_mxu_plan_min_nse(before_nse)
+        ct = rng.normal(size=(A.shape[0], 4)).astype(np.float32)
+        g = jax.grad(lambda b: jnp.vdot(A @ b, jnp.asarray(ct)))(Bm)
+        np.testing.assert_allclose(
+            np.asarray(g), np.asarray(A.todense(), np.float64).T @ ct,
+            rtol=1e-4, atol=1e-4)
 
-    def test_budget_and_traced_gates(self):
+    def test_traced_data_under_jit(self):
         rng = np.random.default_rng(5)
         A = self._mk(rng)
-        Bm = jnp.asarray(rng.normal(size=(A.shape[1], 4)), jnp.float32)
-        before = cfg.get_dense_mm_max_bytes()
-        before_mode = cfg.get_auto_mxu_plan()
-        before_nse = cfg.get_mxu_plan_min_nse()
-        try:
-            cfg.set_auto_mxu_plan(True)
-            cfg.set_mxu_plan_min_nse(1)
-            cfg.set_dense_mm_max_bytes(8)      # too small
-            _ = A @ Bm
-            assert getattr(A, '_mxu_dense', None) is None
-            with pytest.raises(ValueError):
-                cfg.set_dense_mm_max_bytes(-1)
-            cfg.set_dense_mm_max_bytes(1 << 30)
-            # traced data -> None (exact AD on the primitive)
-            def f(d):
-                M = be.CSR((d, A.indices, A.indptr), shape=A.shape)
-                assert M._mxu_matmat(Bm, csr_transpose=False) is None
-                return M @ Bm
-            ref = A @ Bm
-            np.testing.assert_allclose(np.asarray(jax.jit(f)(A.data)),
-                                       np.asarray(ref), rtol=1e-4,
-                                       atol=1e-4)
-        finally:
-            cfg.set_dense_mm_max_bytes(before)
-            cfg.set_auto_mxu_plan(before_mode)
-            cfg.set_mxu_plan_min_nse(before_nse)
+        Bm = rng.normal(size=(A.shape[1], 4)).astype(np.float32)
+
+        def f(d):
+            return be.CSR((d, A.indices, A.indptr), shape=A.shape) @ \
+                jnp.asarray(Bm)
+
+        np.testing.assert_allclose(
+            np.asarray(jax.jit(f)(A.data)),
+            np.asarray(A.todense(), np.float64) @ Bm, rtol=1e-4, atol=1e-4)
 
 
-class TestFcnDenseMMRoute:
+class TestFcnClassMatmat:
     @pytest.mark.parametrize('cls_dir', ['pre_AB', 'pre_xA',
                                          'post_AB', 'post_xA'])
-    def test_matches_sparse_route(self, cls_dir):
+    def test_matches_dense(self, cls_dir):
         from brainevent_tpu.fcn.main import FixedNumPerPre, FixedNumPerPost
         rng = np.random.default_rng(6)
         n_pre, n_post, K = 60, 72, 5
@@ -286,24 +154,12 @@ class TestFcnDenseMMRoute:
             M = FixedNumPerPre((d, idx), shape=(n_pre, n_post))
         else:
             M = FixedNumPerPost((d, idx), shape=(n_post, n_pre))
-        Bm = jnp.asarray(rng.normal(size=(M.shape[1], 4)), jnp.float32)
-        X = jnp.asarray(rng.normal(size=(4, M.shape[0])), jnp.float32)
-        go = (lambda: M @ Bm) if cls_dir.endswith('AB') else (lambda: X @ M)
-        ref = go()
-        before_mode = cfg.get_auto_mxu_plan()
-        before_nse = cfg.get_mxu_plan_min_nse()
-        try:
-            cfg.set_auto_mxu_plan(True)
-            cfg.set_mxu_plan_min_nse(1)
-            fast = go()
-            # direction-gated: dense only serves the unfavorable
-            # (ell_transpose) direction — pre_xA and post_AB
-            if cls_dir in ('pre_xA', 'post_AB'):
-                assert getattr(M, '_mxu_dense', None) is not None
-            else:
-                assert getattr(M, '_mxu_dense', None) is None
-            np.testing.assert_allclose(np.asarray(fast), np.asarray(ref),
-                                       rtol=1e-4, atol=1e-4)
-        finally:
-            cfg.set_auto_mxu_plan(before_mode)
-            cfg.set_mxu_plan_min_nse(before_nse)
+        D = np.asarray(M.todense(), np.float64)
+        Bm = rng.normal(size=(M.shape[1], 4)).astype(np.float32)
+        X = rng.normal(size=(4, M.shape[0])).astype(np.float32)
+        if cls_dir.endswith('AB'):
+            got, want = M @ jnp.asarray(Bm), D @ Bm
+        else:
+            got, want = jnp.asarray(X) @ M, X @ D
+        np.testing.assert_allclose(np.asarray(got), want, rtol=1e-4,
+                                   atol=1e-4)

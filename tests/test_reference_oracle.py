@@ -122,7 +122,7 @@ def test_lfsr_vectorized_stream_vs_reference(ref, alg, seed):
         rv = r_randint(rs)
         mv = np.asarray(vec.randint(), np.uint32)
         assert np.uint32(rv) == mv
-    # rand: reference computes in f64, the TPU class in f32
+    # rand: reference computes in f64, this class in f32
     r_rand = getattr(ref, f'{alg}_rand')
     for _ in range(8):
         np.testing.assert_allclose(np.float32(r_rand(rs)),

@@ -201,9 +201,8 @@ class TestLFSR:
             config.set_lfsr_algorithm('lfsr88')
 
     def test_inside_pallas_kernel(self):
-        """LFSR draws inside a Pallas kernel (interpret mode on CPU)."""
+        """LFSR draws inside a Pallas kernel (interpreted on CPU)."""
         from jax.experimental import pallas as pl
-        from brainevent_tpu.ops import pallas_utils
 
         def kern(seed_ref, o_ref):
             g = rng.PallasLFSR88RNG(seed_ref[:])
@@ -213,7 +212,7 @@ class TestLFSR:
         out = pl.pallas_call(
             kern,
             out_shape=jax.ShapeDtypeStruct((8, 128), jnp.float32),
-            interpret=pallas_utils.interpret_mode(),
+            interpret=True,
         )(seeds)
         # must equal the plain-JAX draws (same math path)
         g = rng.PallasLFSR88RNG(seeds)

@@ -165,7 +165,7 @@ class TestJITCX64:
     @pytest.mark.parametrize('fam', ['s', 'n', 'u'])
     def test_mv_f64_vector(self, x64, rng, fam):
         # f64 OPERAND with f32 params: output follows the promotion rule
-        # and the walk falls back off the f32-only Mosaic kernels exactly
+        # and the walk runs in the operand dtype
         mv = getattr(be, f'jit{fam}mv')
         params = {'s': (1.5,), 'n': (0.5, 1.5), 'u': (0.2, 1.7)}[fam]
         v64 = jnp.asarray(rng.normal(size=30), jnp.float64)
